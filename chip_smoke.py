@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # all phases
+    python3 chip_smoke.py --profile   # and a torch.profiler breakdown of
+                                      # the training step after phase 4
 
 Phases (any failure raises and exits non-zero):
-  1. print the card's name and power limit; build the three CUDA
-     kernels of the stage-1 render path from quadraturefields_tpu_torch/csrc;
+  1. print the card's name and power limit; build the kernels of
+     quadraturefields_tpu_torch/csrc, one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card at
-     the main path's shapes, and time both;
-  3. render fixture views at full model width (Stage1Config defaults,
-     weights from a seeded generator) through Stage1Trainer.evaluate
-     with the one-shot renderer, count each kernel's launches in that
-     run, compare a kernel-path view with a plain-path view, render one
-     view with the default ("auto" -> windowed) renderer, and report
-     rays/s and samples/s.
+     the main paths' shapes, and time both (and the one-call library
+     equivalent where there is one): the encode (K2), the occupancy
+     bits (K4), the per-ray segment sum (K3), the fused table gradient
+     (K1) at 2^18 points, the pair segment sum at 16.8M contributions
+     and K8's bf16 value-space wrapper;
+  3. the evaluation path: render fixture views at full model width
+     (Stage1Config defaults, seeded random weights) through
+     Stage1Trainer.evaluate with the one-shot renderer, count each
+     kernel's launches in that run, compare a kernel-path view with a
+     plain-path view, render one view with the default ("auto" ->
+     windowed) renderer, and report rays/s and samples/s;
+  4. the training path: Stage1Trainer.train at Stage1Config defaults for
+     300 steps on the same views, counting each kernel's launches; check
+     that the loss halves, the final eval PSNR passes 20 dB and the
+     occupancy grid is pruned below half; report steady-state ms/step,
+     rays/s and samples/s over steps 150-300; then hold one training
+     step on the kernel path against the plain path on the card.
 The last two lines of standard output are a JSON summary of the kernels
 and the result line {"ok": true, "device": {...}}.
 """
@@ -22,10 +34,18 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
+
+# the card's published peaks (H100 SXM): HBM bytes/s, f32 FLOP/s outside
+# the tensor cores; a kernel's bound is the larger of bytes / HBM rate
+# and operations / f32 rate
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def check(cond, msg):
@@ -60,20 +80,34 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time of a function that moves n_bytes and does n_ops
+    f32 operations on this card, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 class FixtureViews:
     """Fixture views held in memory, with the NeRF-synthetic loader's
-    eval interface (HEIGHT, WIDTH, len, fetch_eval_view). Poses and
-    camera rays follow quadraturefields_tpu.data.fixture; pixels are the
-    analytic scene rendered at a 2e-2 step (ground truth for PSNR only)."""
+    eval interface (HEIGHT, WIDTH, len, fetch_eval_view) and its training
+    interface (num_rays, update_num_rays, fetch_train_batch: pixels drawn
+    across all views with a seeded numpy generator, as SubjectLoader
+    draws them). Poses and camera rays follow
+    quadraturefields_tpu_torch.data.fixture; pixels are the analytic
+    scene rendered at a 2e-2 step on white."""
 
-    def __init__(self, n_views=4, res=256, fov_deg=50.0, seed=2):
-        from quadraturefields_tpu.data.fixture import (
+    def __init__(self, n_views=4, res=256, fov_deg=50.0, seed=2,
+                 num_rays=4096):
+        from quadraturefields_tpu_torch.data.fixture import (
             FixtureScene,
             _look_at_poses,
             render_fixture_view,
         )
-        from quadraturefields_tpu.data.nerf_synthetic import Rays
+        from quadraturefields_tpu_torch.data.nerf_synthetic import Rays
 
+        self._rays = Rays
         scene = FixtureScene()
         focal = 0.5 * res / np.tan(0.5 * np.deg2rad(fov_deg))
         self.HEIGHT = self.WIDTH = res
@@ -95,6 +129,11 @@ class FixtureViews:
                              dirs.astype(np.float32)),
                 "color_bkgd": np.ones(3, np.float32),
             })
+        self._pixels = np.stack([v["pixels"] for v in self.views])
+        self._origins = np.stack([v["rays"].origins for v in self.views])
+        self._dirs = np.stack([v["rays"].viewdirs for v in self.views])
+        self.num_rays = num_rays
+        self.rng = np.random.default_rng(seed)
 
     def __len__(self):
         return len(self.views)
@@ -102,23 +141,51 @@ class FixtureViews:
     def fetch_eval_view(self, index):
         return self.views[index % len(self.views)]
 
+    def update_num_rays(self, num_rays: int):
+        self.num_rays = int(num_rays)
+
+    def fetch_train_batch(self):
+        n = self.num_rays
+        image_id = self.rng.integers(0, len(self.views), size=n)
+        x = self.rng.integers(0, self.WIDTH, size=n)
+        y = self.rng.integers(0, self.HEIGHT, size=n)
+        pix = y * self.WIDTH + x
+        return {
+            "pixels": self._pixels[image_id, pix],
+            "rays": self._rays(self._origins[image_id, pix],
+                               self._dirs[image_id, pix]),
+            "color_bkgd": np.ones(3, np.float32),
+        }
+
 
 def compare_kernels(torch, dev, report):
     """Phase 2: each kernel against its plain version at main-path
-    shapes. Fills report[name] with max_abs_err, ms and plain_ms."""
+    shapes. Fills report[name] with max_abs_err, ms, plain_ms,
+    library_ms and the bound."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
 
     g = torch.Generator(device=dev).manual_seed(0)
 
+    def grid(interp):
+        return hg.HashGridConfig.from_max_resolution(
+            4096, n_levels=16, n_features=2, log2_hashmap_size=19,
+            interp=interp)
+
+    def rows_touched(x, cfg):
+        idx, _ = hg._corner_indices_weights(x, cfg)
+        touched = torch.zeros(cfg.total_entries, dtype=torch.bool,
+                              device=dev)
+        touched[idx.reshape(-1)] = True
+        return int(touched.sum())
+
     # encode: 2^20 points, L16 F2 T2^19, table U(-1,1), err <= 1e-5
     n = 1 << 20
     x = torch.rand((n, 3), generator=g, device=dev)
     for interp in ("tet", "cube"):
-        cfg = hg.HashGridConfig.from_max_resolution(
-            4096, n_levels=16, n_features=2, log2_hashmap_size=19,
-            interp=interp)
+        cfg = grid(interp)
         table = torch.rand((cfg.total_entries, 2), generator=g,
                            device=dev) * 2 - 1
         got = hg.encode_kernel(table, x, cfg)
@@ -127,13 +194,19 @@ def compare_kernels(torch, dev, report):
         err = float((got - want).abs().max())
         ms = cuda_ms(lambda: hg.encode_kernel(table, x, cfg))
         plain_ms = cuda_ms(lambda: hg.encode_plain(table, x, cfg), iters=5)
+        # x and out once, each table row the corners touch once; a
+        # multiply-add per corner feature
+        b = bound(n * 12 + rows_touched(x, cfg) * 8 + n * cfg.output_dim * 4,
+                  2 * n * cfg.n_levels * cfg.corners * 2)
         print(f"encode {interp}: {n} points, {cfg.total_entries} rows "
               f"({cfg.total_entries * 8 / 1e6:.1f} MB): max_abs_err {err} "
-              f"(limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"(limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(err <= 1e-5, f"encode {interp} disagrees: {err}")
         if interp == "tet":  # the trainer default
-            report["hashgrid_encode"] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=plain_ms)
+            report["hashgrid_encode"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
         del table, got, want
 
     # coarse bits: 32^3 grid, 2^21 queries (some outside the box)
@@ -149,11 +222,14 @@ def compare_kernels(torch, dev, report):
     err = float((got.int() - want.int()).abs().max())
     ms = cuda_ms(lambda: ob.lookup_bits_kernel(bits, aabb, pos, res))
     plain_ms = cuda_ms(lambda: ob.lookup_bits_plain(bits, aabb, pos, res))
+    b = bound(bits.numel() * bits.element_size() + q * 12 + q, q * 12)
     print(f"occupancy bits: {res}^3 grid, {q} queries: {mismatches} "
           f"mismatches (must be 0); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
     check(mismatches == 0, "bit lookup is not bit-exact")
-    report["occ_bits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    report["occ_bits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, **b)
 
     # segment sum: 2^20 rows x 8 into 8192 segments + sentinel padding
     m, n_seg = 1 << 20, 8192
@@ -169,11 +245,108 @@ def compare_kernels(torch, dev, report):
     rel = err / float(want.abs().max())
     ms = cuda_ms(lambda: hs.segment_sum_kernel(keys, vals, n_seg))
     plain_ms = cuda_ms(lambda: hs.segment_sum_plain(keys, vals, n_seg))
+    acc = torch.zeros((n_seg + 1, 8), device=dev)
+    keys_c = keys.long().clamp(0, n_seg)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, keys_c, vals))
+    b = bound(m * 4 + m * 32 + n_seg * 32, m * 8)
     print(f"segment sum: {m} rows x 8 into {n_seg} segments: max_abs_err "
           f"{err}, relative {rel} (limit 1e-5); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+          f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
     check(rel <= 1e-5, f"segment sum disagrees: {rel}")
-    report["segment_sum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    report["segment_sum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, **b)
+    del keys, vals, acc, keys_c
+
+    # fused table gradient (K1): 2^18 points, L16 F2 T2^19, g ~ N(0,1);
+    # atomics add in a varying order: limit 1e-5 * max |want|, want the
+    # plain version's sum in float64 (an f32 index_add_ adds with atomics
+    # too, and its own rounding is of the order of the limit)
+    n = 1 << 18
+    x = torch.rand((n, 3), generator=g, device=dev)
+    for interp in ("tet", "cube"):
+        cfg = grid(interp)
+        cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+        got = hg.table_grad_kernel(x, cot, cfg)
+        want = hg.table_grad_plain(x, cot.double(), cfg)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        ms = cuda_ms(lambda: hg.table_grad_kernel(x, cot, cfg))
+        plain_ms = cuda_ms(lambda: hg.table_grad_plain(x, cot, cfg), iters=5)
+        b = bound(n * 12 + n * cfg.output_dim * 4 + cfg.total_entries * 8,
+                  2 * n * cfg.n_levels * cfg.corners * 2)
+        print(f"table grad (fused) {interp}: {n} points, "
+              f"{n * cfg.n_levels * cfg.corners} contributions into "
+              f"{cfg.total_entries} rows: max_abs_err {err}, relative {rel} "
+              f"(limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(rel <= 1e-5, f"table grad {interp} disagrees: {rel}")
+        if interp == "tet":
+            report["hashgrid_encode_bwd"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
+            contrib = (x, cot, cfg)
+        del got, want
+
+    def pairs_f64(i, a, b, entries):
+        return hs.table_grad_pairs_plain(i, a.double(), b.double(), entries)
+
+    # the pair form on the same stream: (entry, w*g0, w*g1), M = 16.8M;
+    # the same limit against the plain sum in float64
+    x, cot, cfg = contrib
+    idx, w = hg._corner_indices_weights(x, cfg)
+    L, C = cfg.n_levels, cfg.corners
+    gl = cot.reshape(n, L, 1, 2)
+    v = (w.reshape(n, L, C, 1) * gl).reshape(-1, 2)
+    idx = idx.reshape(-1).int()
+    v0, v1 = v[:, 0].contiguous(), v[:, 1].contiguous()
+    m, e = idx.shape[0], cfg.total_entries
+    got = hs.table_grad_pairs_kernel(idx, v0, v1, e)
+    want = pairs_f64(idx, v0, v1, e)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    ms = cuda_ms(lambda: hs.table_grad_pairs_kernel(idx, v0, v1, e))
+    plain_ms = cuda_ms(lambda: hs.table_grad_pairs_plain(idx, v0, v1, e))
+    out = torch.zeros((e, 2), device=dev)
+    vals = torch.stack([v0, v1], dim=1)
+    lib_ms = cuda_ms(lambda: out.index_add_(0, idx, vals))
+    b = bound(m * 12 + e * 8, 2 * m)
+    print(f"table grad (pairs): {m} contributions into {e} entries: "
+          f"max_abs_err {err}, relative {rel} (limit 1e-5); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    check(rel <= 1e-5, f"pair table grad disagrees: {rel}")
+    report["table_grad_pairs"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      **b)
+    del out, vals
+
+    # K8's wrapper: the same stream as (row, lane0) of the value layout,
+    # values rounded to bf16; against the wrapper on the plain pairs
+    # summed in float64
+    flat = idx.long() * 2
+    rows, lane0 = (flat >> 7).int(), (flat & 127).int()
+    total_values = 2 * e
+    got = hb.sorted_table_grad(rows, lane0, v0, v1, total_values)
+    with mock.patch.object(hs, "table_grad_pairs_kernel", pairs_f64):
+        want = hb.sorted_table_grad(rows, lane0, v0, v1, total_values)
+    with mock.patch.object(hs, "table_grad_pairs_kernel",
+                           hs.table_grad_pairs_plain):
+        plain_ms = cuda_ms(lambda: hb.sorted_table_grad(
+            rows, lane0, v0, v1, total_values))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    ms = cuda_ms(lambda: hb.sorted_table_grad(rows, lane0, v0, v1,
+                                              total_values))
+    b = bound(m * 16 + total_values * 4, 2 * m)
+    print(f"K8 wrapper (bf16 values, pair kernel): {m} contributions into "
+          f"{total_values} values: max_abs_err {err}, relative {rel} "
+          f"(limit 1e-5); wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    check(rel <= 1e-5, f"K8 wrapper disagrees: {rel}")
 
 
 def fixture_occupancy(trainer):
@@ -181,7 +354,7 @@ def fixture_occupancy(trainer):
     128^3 cells), filled as bench.py fills the JAX grid."""
     import torch
 
-    from quadraturefields_tpu.data.fixture import FixtureScene
+    from quadraturefields_tpu_torch.data.fixture import FixtureScene
 
     res = trainer.occ_cfg.resolution
     lin = np.linspace(-1.5, 1.5, res)
@@ -196,20 +369,44 @@ def fixture_occupancy(trainer):
     )
 
 
-def render_slice(torch, kernels, card):
-    """Phase 3: the stage-1 evaluation path at full width."""
+def plain_path():
+    """Every kernel of the paths patched with its plain version."""
+    from contextlib import ExitStack
+
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
+
+    stack = ExitStack()
+    for mod, name, plain in (
+        (hg, "encode_kernel", hg.encode_plain),
+        (hg, "table_grad_kernel", hg.table_grad_plain),
+        (ob, "lookup_bits_kernel", ob.lookup_bits_plain),
+        (hs, "segment_sum_kernel", hs.segment_sum_plain),
+    ):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def count_launches(kernels, fn):
+    """fn() with every kernel's count set to 0 just before; returns
+    (fn's result, {name: launches})."""
+    import torch
+
+    for k in kernels:
+        k.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k.name: k.launches for k in kernels}
+
+
+def render_slice(torch, kernels, card, views):
+    """Phase 3: the stage-1 evaluation path at full width."""
     from quadraturefields_tpu_torch.train.stage1_ngp import (
         Stage1Config,
         Stage1Trainer,
     )
 
-    t0 = time.perf_counter()
-    views = FixtureViews()
-    print(f"fixture views: {len(views)} x {views.HEIGHT}x{views.WIDTH} "
-          f"built in {time.perf_counter() - t0:.1f} s")
     cfg = Stage1Config(eval_renderer="oneshot")
     trainer = Stage1Trainer(cfg, train_dataset=views, test_dataset=views)
     trainer.occ_state = fixture_occupancy(trainer)
@@ -217,18 +414,14 @@ def render_slice(torch, kernels, card):
     print(f"model: {trainer.ngp_cfg}")
     print(f"render: {trainer.rcfg}; occupied cells {occ_frac:.4f}")
 
-    for k in kernels:
-        k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics = trainer.evaluate()
-    torch.cuda.synchronize()
+    metrics, launches = count_launches(kernels, trainer.evaluate)
     first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
     print(f"evaluate (one-shot, first call): {metrics} in {first_s:.3f} s; "
           f"kernel launches {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"the main path never launched {name}")
+    for name in ("hashgrid_encode", "occ_bits", "segment_sum"):
+        check(launches[name] > 0, f"the eval path never launched {name}")
     check(np.isfinite(metrics["psnr"]) and np.isfinite(metrics["ssim"]),
           f"non-finite metrics {metrics}")
 
@@ -264,11 +457,7 @@ def render_slice(torch, kernels, card):
     data = views.fetch_eval_view(0)
     rgb_kernel = trainer.render_view(data)
     before = {k.name: k.launches for k in kernels}
-    with mock.patch.object(hg, "encode_kernel", hg.encode_plain), \
-            mock.patch.object(ob, "lookup_bits_kernel",
-                              ob.lookup_bits_plain), \
-            mock.patch.object(hs, "segment_sum_kernel",
-                              hs.segment_sum_plain):
+    with plain_path():
         rgb_plain = trainer.render_view(data)
     check({k.name: k.launches for k in kernels} == before,
           "the plain-path render launched a kernel")
@@ -297,6 +486,227 @@ def render_slice(torch, kernels, card):
     return launches
 
 
+def step_grads(torch, trainer, batch):
+    """Loss and every parameter's gradient of one training step on
+    `batch` (origins, viewdirs, pixels, bkgd, t_jitter)."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
+
+    leaves = _leaves(trainer.params)
+    for p in leaves:
+        p.grad = None
+    loss, _ = trainer._loss_fn(trainer.params, trainer.occ_state, *batch)
+    loss.backward()
+    grads = [p.grad.detach().clone() for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def train_slice(torch, kernels, card, views, profile: bool):
+    """Phase 4: Stage1Trainer.train at the defaults for 300 steps."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import (
+        Stage1Config,
+        Stage1Trainer,
+    )
+
+    root = tempfile.mkdtemp(prefix="qf_smoke_")
+    cfg = Stage1Config(max_steps=300, log_every=50, ckpt_every=10**9,
+                       root=root, scene="fixture")
+    views.update_num_rays(cfg.init_batch_size)
+    trainer = Stage1Trainer(cfg, train_dataset=views, test_dataset=views)
+    budget = trainer.rcfg.max_samples_total
+    record = []  # (end time, rays, samples, loss) per step
+    one_step = trainer.train_one_step
+
+    def timed_step():
+        rays = views.num_rays
+        loss, aux = one_step()
+        loss = float(loss)  # waits for the step
+        record.append((time.perf_counter(), rays,
+                       min(int(aux["num_valid"]), budget), loss))
+        return loss, aux
+
+    trainer.train_one_step = timed_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, launches = count_launches(kernels, trainer.train)
+    train_s = time.perf_counter() - t0
+    losses = [r[3] for r in record]
+    occ_frac = float(trainer.occ_state.binaries.float().mean())
+    print(f"train: {len(record)} steps + final evaluate in {train_s:.2f} s; "
+          f"eval {metrics}; occupied cells {occ_frac:.4f}; kernel "
+          f"launches {launches}")
+    for name in ("hashgrid_encode", "occ_bits", "segment_sum",
+                 "hashgrid_encode_bwd"):
+        check(launches[name] > 0, f"the training path never launched {name}")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    print(f"loss: mean of the first 20 steps {first:.6f}, of the last 20 "
+          f"{last:.6f} (must be < half)")
+    check(last < 0.5 * first, "the training loss did not halve")
+    check(metrics["psnr"] > 20.0, f"eval PSNR {metrics['psnr']} <= 20 dB")
+    check(occ_frac < 0.5, f"occupied share {occ_frac} >= 0.5")
+
+    # steady state over steps 150-300 (step 100 turned the dynamic
+    # batch on, step 256 ended the occupancy warm-up)
+    t_a, t_b = record[150][0], record[300][0]
+    rays = sum(r[1] for r in record[151:301])
+    samples = sum(r[2] for r in record[151:301])
+    steady_s = t_b - t_a
+    ms_step = steady_s / 150 * 1e3
+    print(f"stage-1 training, steps 150-300: {ms_step:.3f} ms/step, "
+          f"{rays / steady_s:.1f} rays/s, {samples / steady_s:.1f} "
+          f"samples/s (valid samples, at most {budget} a step); batch now "
+          f"{views.num_rays} rays [{card}]")
+    trainer.train_one_step = one_step
+
+    # one step on the kernel path against the plain path, on the card,
+    # with the trained weights, one batch and one stratified jitter
+    data = views.fetch_train_batch()
+    dev = trainer.device
+    batch = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+             for a in (data["rays"].origins, data["rays"].viewdirs,
+                       data["pixels"], data["color_bkgd"])]
+    batch.append(torch.rand((batch[0].shape[0],), generator=trainer.generator,
+                            device=dev))
+    for dtype in ("float32", "bfloat16"):
+        compare_step(torch, trainer, kernels, batch, dtype)
+
+    if profile:
+        profile_steps(torch, trainer, card)
+    return launches, dict(ms_step=ms_step, rays_per_s=rays / steady_s,
+                          samples_per_s=samples / steady_s)
+
+
+def compare_step(torch, trainer, kernels, batch, compute_dtype):
+    """Loss and gradients of one training step, kernel path against
+    plain path, with the MLPs in `compute_dtype`. The loss must agree
+    within 1e-5 relative. The fused table-gradient kernel's output in the
+    kernel-path step must lie within 1e-5 * max |want| of the plain
+    table gradient summed in float64 on the same inputs (the atomics add
+    in a varying order). Every gradient must lie within a limit times
+    its max |grad| of the plain path's: in float32 1e-4; in bfloat16
+    8 times the plain path's own spread (the largest such error between
+    its first step and three more on the same inputs), and at least
+    2^-8, bf16's unit roundoff. The plain path is not deterministic on
+    the card: its index_add_ composite adds with atomics, and in bf16
+    the operand casts turn those f32 ulps into bf16 rounding flips."""
+    import dataclasses
+
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    saved = trainer.ngp_cfg
+    trainer.ngp_cfg = dataclasses.replace(saved, compute_dtype=compute_dtype)
+    table_calls = []
+    kernel = hg.table_grad_kernel
+
+    def recording(x, g, cfg):
+        out = kernel(x, g, cfg)
+        table_calls.append((x, g, cfg, out))
+        return out
+
+    try:
+        with mock.patch.object(hg, "table_grad_kernel", recording):
+            loss_k, grads_k = step_grads(torch, trainer, batch)
+        before = {k.name: k.launches for k in kernels}
+        with plain_path():
+            loss_p, grads_p = step_grads(torch, trainer, batch)
+            reruns = [step_grads(torch, trainer, batch)[1] for _ in range(3)]
+        check({k.name: k.launches for k in kernels} == before,
+              "the plain-path step launched a kernel")
+    finally:
+        trainer.ngp_cfg = saved
+
+    def rel(a, b):
+        return [float((x - y).abs().max() / y.abs().max())
+                for x, y in zip(a, b)]
+
+    check(len(table_calls) == 1, f"{len(table_calls)} table-gradient calls")
+    x, g, cfg, got = table_calls[0]
+    want = hg.table_grad_plain(x, g.double(), cfg)
+    table_err = float((got - want).abs().max() / want.abs().max())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    errs = rel(grads_k, grads_p)
+    spread = max(max(rel(r, grads_p)) for r in reruns)
+    limit = 1e-4 if compute_dtype == "float32" else max(8 * spread, 2**-8)
+    print(f"one training step ({compute_dtype} MLPs), kernel path vs plain "
+          f"path: loss {loss_k} vs {loss_p} (relative {loss_rel}, limit "
+          f"1e-5); fused table gradient vs float64 plain sum, same inputs: "
+          f"{table_err} of max (limit 1e-5); gradient error / max |grad| "
+          f"per leaf (table first) {errs} (limit {limit}); plain path vs "
+          f"itself, largest of three reruns {spread}")
+    check(loss_rel <= 1e-5, f"kernel-path loss disagrees: {loss_rel}")
+    check(table_err <= 1e-5, f"fused table gradient disagrees: {table_err}")
+    check(max(errs) <= limit, f"kernel-path gradients disagree: {errs}")
+
+
+# kernel-name patterns of the profile's classes, first match wins
+PROFILE_CLASSES = (
+    ("encode backward (K1 fused)", ("encode_bwd_kernel",)),
+    ("encode forward (K2)", ("encode_kernel",)),
+    ("occupancy bits (K4)", ("bits",)),
+    ("segment sum (K3)", ("segment_sum",)),
+    ("MLP GEMMs (fwd + bwd)", ("gemm", "xmma", "cutlass", "sm90", "Kernel2")),
+    ("Adam (multi-tensor)", ("multi_tensor", "foreach", "adam")),
+    ("compaction (nonzero / cub)", ("nonzero", "cub::", "select", "flag")),
+    ("copies and dtype casts (bf16 MLP operands)", ("copy",)),
+    ("gathers / scatters / index_add_", ("index", "gather", "scatter")),
+    ("reductions", ("reduce",)),
+    ("elementwise (scans, composite, activations)",
+     ("elementwise", "cat", "fill", "where", "pow", "clamp")),
+)
+# host ops that wait for the device: the march's nonzero compaction and
+# the scalar reads (.item(), int(tensor))
+SYNC_OPS = ("aten::nonzero", "aten::_local_scalar_dense")
+
+
+def profile_steps(torch, trainer, card, n_steps=10):
+    """torch.profiler over n_steps training steps: device time by kernel
+    class, the device busy share, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        trainer.train_one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            trainer.train_one_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel, sync_ms, n_kernels = {}, {}, 0
+    for evt in prof.key_averages():
+        if evt.key in SYNC_OPS:
+            sync_ms[evt.key] = evt.cpu_time_total / 1e3
+        # a user annotation (Optimizer.step#Adam.step) also shows as a
+        # device event; its kernels are counted on their own
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
+                                  + evt.self_device_time_total / 1e3)
+            n_kernels += evt.count
+    total = sum(by_kernel.values())
+    classes = {}
+    for name, ms in by_kernel.items():
+        label = next((c for c, pats in PROFILE_CLASSES
+                      if any(p.lower() in name.lower() for p in pats)),
+                     "other")
+        classes[label] = classes.get(label, 0.0) + ms
+    print(f"profile: {n_steps} steps, {wall * 1e3 / n_steps:.3f} ms/step "
+          f"wall (profiled), device kernel time {total / n_steps:.3f} "
+          f"ms/step in {n_kernels / n_steps:.0f} kernels, busy share "
+          f"{total / 1e3 / wall:.3f} [{card}]")
+    for label, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"  {label}: {ms / n_steps:.3f} ms/step "
+              f"({100 * ms / max(total, 1e-9):.1f}%)")
+    print("  host time in ops that wait for the device (ms/step): "
+          + ", ".join(f"{k} {v / n_steps:.3f}" for k, v in sync_ms.items()))
+    print("  top kernels (ms/step):")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"    {ms / n_steps:.4f}  {name[:110]}")
+
+
 def main() -> int:
     import torch
 
@@ -309,25 +719,45 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    from quadraturefields_tpu_torch._cuda import build
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
 
-    kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL]
+    kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
+               hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL]
+    libraries = sorted({k.library for k in kernels})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        list(pool.map(build, libraries))
     for k in kernels:
-        t0 = time.perf_counter()
         k.load()
-        print(f"built {k.source} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {', '.join(libraries)} (csrc/*.cu, in parallel) in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     report = {}
     compare_kernels(torch, dev, report)
-    launches = render_slice(torch, kernels, card)
+
+    t0 = time.perf_counter()
+    views = FixtureViews()
+    print(f"fixture views: {len(views)} x {views.HEIGHT}x{views.WIDTH} "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    eval_launches = render_slice(torch, kernels, card, views)
+    train_launches, _ = train_slice(torch, kernels, card, views,
+                                    profile="--profile" in sys.argv[1:])
+
     check("jax" not in sys.modules, "the port imported jax")
+    ref = sorted(k for k in sys.modules if k == "quadraturefields_tpu"
+                 or k.startswith("quadraturefields_tpu."))
+    check(not ref, f"the port imported the JAX package: {ref}")
 
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces, "launches": train_launches[k.name],
+         "launches_by_path": {"eval": eval_launches[k.name],
+                              "train": train_launches[k.name]},
+         "path": "train" if train_launches[k.name] else "none (phase 2 only)",
          **report[k.name]}
         for k in kernels
     ]}))

@@ -34,9 +34,6 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-_build_lock = threading.Lock()
-
-
 def find_nvcc() -> str:
     """nvcc from CUDA_HOME, the standard toolkit location, or PATH."""
     cands = []
@@ -56,18 +53,22 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu (and the shared header) into a shared
-    library, unless a build of the same sources and flags exists."""
+    """Compile csrc/<name>.cu into a shared library, unless a build of
+    the same sources and flags exists. Every csrc/*.cuh header enters
+    the digest, so an edited header never loads a stale library."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256()
-    for p in (src, CSRC / "common.cuh"):
+    for p in (src, *sorted(CSRC.glob("*.cuh"))):
+        digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # a private temp name per process and thread, then an atomic rename:
+    # concurrent builds of one library (or of several) never clash
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -87,20 +88,22 @@ class CudaKernel:
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list,
-                 replaces: str):
+                 replaces: str, library: str = ""):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces  # file:line of the TPU kernel it ports
-        self.source = f"quadraturefields_tpu_torch/csrc/{name}.cu"
+        self.library = library or name  # csrc/<library>.cu holds it
+        self.source = f"quadraturefields_tpu_torch/csrc/{self.library}.cu"
         self.launches = 0
         self._fn = None
         self._lib = None
+        self._lock = threading.Lock()
 
     def load(self):
-        with _build_lock:
+        with self._lock:
             if self._fn is None:
-                lib = ctypes.CDLL(str(build(self.name)))
+                lib = ctypes.CDLL(str(build(self.library)))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int

@@ -23,6 +23,20 @@
 // reads each row as one float2. Position arithmetic uses explicit
 // round-to-nearest intrinsics so that nvcc does not contract x*s+0.5
 // into an FMA: floor() must see the same pos as the plain version.
+//
+// Backward (qf_hashgrid_encode_bwd): the table gradient, which replaces
+// the TPU kernel ops/hashgrid_sorted.py:_acc_kernel (K1, reached from
+// sorted_table_grad at ops/hashgrid.py:736-756). There the contribution
+// stream (entry, w*g0, w*g1) of all N*L*C corners is sorted by entry
+// and summed window by window with one-hot matmuls. Here nothing is
+// materialised or sorted: one thread per (point, level) recomputes its
+// corners with the forward's own level_corners, reads its F cotangent
+// values and adds w*g into the zeroed gradient with atomics. What bounds
+// it on an H100: reading x and g and writing the [E, F] gradient (87 MB
+// at 2^18 points, L16 F2 T2^19: ~26 us at 3.35 TB/s) plus the atomics'
+// throughput in L2, which the coarse dense levels (4096 rows hit by
+// every point) contend for; the design spends one float2 atomic per
+// corner at F = 2 to halve their count.
 #include "common.cuh"
 
 namespace {
@@ -83,22 +97,22 @@ __device__ __forceinline__ void accumulate_row(const float* __restrict__ table,
   }
 }
 
-template <int F, bool kTet>
-__global__ void __launch_bounds__(kThreads)
-encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
-              float* __restrict__ out, long long n, int n_levels,
-              Levels lv) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n * n_levels) return;
-  const long long p = i / n_levels;
-  const int l = static_cast<int>(i - p * n_levels);
-  const float scale = lv.scale[l];
-  const int res = lv.res[l];
-  const int hashed = lv.hashed[l];
-  const unsigned int mask = lv.mask[l];
-  const float* tab = table + lv.offset[l] * F;
+// The corner rows and interpolation weights of point p at level l, in
+// the corner order of ops/hashgrid.py:_CORNERS (cube) or the Kuhn
+// simplex order (tet). The forward and the backward both call this, so
+// the backward scatters into exactly the (row, w) the forward gathered.
+template <bool kTet>
+struct Corners {
+  static constexpr int kCount = kTet ? 4 : 8;
+  long long row[kCount];
+  float w[kCount];
+};
 
+template <bool kTet>
+__device__ __forceinline__ Corners<kTet> level_corners(
+    const float* __restrict__ x, long long p, float scale, int res,
+    int hashed, unsigned int mask) {
+  Corners<kTet> c;
   float frac[3];
   int base[3];
 #pragma unroll
@@ -109,24 +123,18 @@ encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
     frac[a] = __fsub_rn(pos, fl);
     base[a] = static_cast<int>(fl);
   }
-
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-
   if constexpr (!kTet) {
-    // corner c = (i, j, k) = (c>>2 & 1, c>>1 & 1, c & 1), the order of
-    // ops/hashgrid.py:_CORNERS; weight ((w_x) * w_y) * w_z
+    // corner k sits at offset (k>>2 & 1, k>>1 & 1, k & 1); weight
+    // ((w_x) * w_y) * w_z
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int o0 = (c >> 2) & 1, o1 = (c >> 1) & 1, o2 = c & 1;
+    for (int k = 0; k < 8; ++k) {
+      const int o0 = (k >> 2) & 1, o1 = (k >> 1) & 1, o2 = k & 1;
       const float w0 = o0 ? frac[0] : __fsub_rn(1.0f, frac[0]);
       const float w1 = o1 ? frac[1] : __fsub_rn(1.0f, frac[1]);
       const float w2 = o2 ? frac[2] : __fsub_rn(1.0f, frac[2]);
-      const float w = __fmul_rn(__fmul_rn(w0, w1), w2);
-      const long long row = corner_index(base[0] + o0, base[1] + o1,
-                                         base[2] + o2, res, hashed, mask);
-      accumulate_row<F>(tab, row, w, acc);
+      c.w[k] = __fmul_rn(__fmul_rn(w0, w1), w2);
+      c.row[k] = corner_index(base[0] + o0, base[1] + o1, base[2] + o2,
+                              res, hashed, mask);
     }
   } else {
     // Kuhn simplex: rank the fracs descending with the JAX tie-break
@@ -147,19 +155,41 @@ encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
       e1[a] = r[a] == 0;
       e12[a] = r[a] <= 1;
     }
-    const float w[4] = {__fsub_rn(1.0f, f1), __fsub_rn(f1, f2),
-                        __fsub_rn(f2, f3), f3};
-    const long long rows[4] = {
-        corner_index(base[0], base[1], base[2], res, hashed, mask),
-        corner_index(base[0] + e1[0], base[1] + e1[1], base[2] + e1[2],
-                     res, hashed, mask),
-        corner_index(base[0] + e12[0], base[1] + e12[1], base[2] + e12[2],
-                     res, hashed, mask),
-        corner_index(base[0] + 1, base[1] + 1, base[2] + 1, res, hashed,
-                     mask),
-    };
+    c.w[0] = __fsub_rn(1.0f, f1);
+    c.w[1] = __fsub_rn(f1, f2);
+    c.w[2] = __fsub_rn(f2, f3);
+    c.w[3] = f3;
+    c.row[0] = corner_index(base[0], base[1], base[2], res, hashed, mask);
+    c.row[1] = corner_index(base[0] + e1[0], base[1] + e1[1],
+                            base[2] + e1[2], res, hashed, mask);
+    c.row[2] = corner_index(base[0] + e12[0], base[1] + e12[1],
+                            base[2] + e12[2], res, hashed, mask);
+    c.row[3] = corner_index(base[0] + 1, base[1] + 1, base[2] + 1, res,
+                            hashed, mask);
+  }
+  return c;
+}
+
+template <int F, bool kTet>
+__global__ void __launch_bounds__(kThreads)
+encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
+              float* __restrict__ out, long long n, int n_levels,
+              Levels lv) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n * n_levels) return;
+  const long long p = i / n_levels;
+  const int l = static_cast<int>(i - p * n_levels);
+  const float* tab = table + lv.offset[l] * F;
+  const Corners<kTet> c = level_corners<kTet>(
+      x, p, lv.scale[l], lv.res[l], lv.hashed[l], lv.mask[l]);
+
+  float acc[F];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) accumulate_row<F>(tab, rows[c], w[c], acc);
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < Corners<kTet>::kCount; ++k) {
+    accumulate_row<F>(tab, c.row[k], c.w[k], acc);
   }
 
   float* o = out + p * n_levels * F + l * F;
@@ -168,6 +198,51 @@ encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
   } else {
 #pragma unroll
     for (int f = 0; f < F; ++f) o[f] = acc[f];
+  }
+}
+
+// Table gradient of the encode (K1, fused): d_table[row] += w * g[p, l]
+// for every corner of every (point, level). No sort: each thread
+// recomputes its corners with level_corners and adds in place with
+// atomics, one float2 atomicAdd per corner at F == 2 (native on
+// sm_90), scalar atomics otherwise. The order of the sums varies from
+// run to run, so results match the plain version to f32 rounding only.
+template <int F, bool kTet>
+__global__ void __launch_bounds__(kThreads)
+encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  float* __restrict__ d_table, long long n, int n_levels,
+                  Levels lv) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n * n_levels) return;
+  const long long p = i / n_levels;
+  const int l = static_cast<int>(i - p * n_levels);
+  float* dtab = d_table + lv.offset[l] * F;
+  const Corners<kTet> c = level_corners<kTet>(
+      x, p, lv.scale[l], lv.res[l], lv.hashed[l], lv.mask[l]);
+
+  const float* gp = g + p * n_levels * F + l * F;
+  float gv[F];
+  if constexpr (F == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(gp));
+    gv[0] = v.x;
+    gv[1] = v.y;
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) gv[f] = __ldg(gp + f);
+  }
+#pragma unroll
+  for (int k = 0; k < Corners<kTet>::kCount; ++k) {
+    if constexpr (F == 2) {
+      atomicAdd(reinterpret_cast<float2*>(dtab) + c.row[k],
+                make_float2(__fmul_rn(c.w[k], gv[0]),
+                            __fmul_rn(c.w[k], gv[1])));
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        atomicAdd(dtab + c.row[k] * F + f, __fmul_rn(c.w[k], gv[f]));
+      }
+    }
   }
 }
 
@@ -186,6 +261,36 @@ cudaError_t launch(bool tet, const float* x, const float* table, float* out,
   return cudaGetLastError();
 }
 
+template <int F>
+cudaError_t launch_bwd(bool tet, const float* x, const float* g,
+                       float* d_table, long long n, int n_levels,
+                       const Levels& lv, cudaStream_t stream) {
+  const unsigned int blocks = qf_blocks(n * n_levels, kThreads);
+  if (tet) {
+    encode_bwd_kernel<F, true><<<blocks, kThreads, 0, stream>>>(
+        x, g, d_table, n, n_levels, lv);
+  } else {
+    encode_bwd_kernel<F, false><<<blocks, kThreads, 0, stream>>>(
+        x, g, d_table, n, n_levels, lv);
+  }
+  return cudaGetLastError();
+}
+
+bool make_levels(int n_levels, const float* scales, const int* res,
+                 const long long* sizes, const long long* offsets,
+                 Levels* lv) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return false;
+  for (int l = 0; l < n_levels; ++l) {
+    lv->scale[l] = scales[l];
+    lv->res[l] = res[l];
+    const long long r = res[l];
+    lv->hashed[l] = r * r * r > sizes[l];
+    lv->mask[l] = static_cast<unsigned int>(sizes[l] - 1);
+    lv->offset[l] = offsets[l];
+  }
+  return true;
+}
+
 }  // namespace
 
 // x [n, 3] f32, table [E, F] f32, out [n, L*F] f32, all device memory;
@@ -196,17 +301,9 @@ QF_EXPORT int qf_hashgrid_encode(const float* x, const float* table,
                                  const float* scales, const int* res,
                                  const long long* sizes,
                                  const long long* offsets, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || n <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Levels lv;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.scale[l] = scales[l];
-    lv.res[l] = res[l];
-    const long long r = res[l];
-    lv.hashed[l] = r * r * r > sizes[l];
-    lv.mask[l] = static_cast<unsigned int>(sizes[l] - 1);
-    lv.offset[l] = offsets[l];
+  if (n <= 0 || !make_levels(n_levels, scales, res, sizes, offsets, &lv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -215,6 +312,32 @@ QF_EXPORT int qf_hashgrid_encode(const float* x, const float* table,
     case 2: err = launch<2>(tet, x, table, out, n, n_levels, lv, s); break;
     case 4: err = launch<4>(tet, x, table, out, n, n_levels, lv, s); break;
     case 8: err = launch<8>(tet, x, table, out, n, n_levels, lv, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// x [n, 3] f32, g [n, L*F] f32 (the output's cotangent), d_table [E, F]
+// f32 zeroed by the caller and added into, all device memory; the
+// per-level arrays (length L) are host memory.
+QF_EXPORT int qf_hashgrid_encode_bwd(const float* x, const float* g,
+                                     float* d_table, long long n,
+                                     int n_levels, int n_features, int tet,
+                                     const float* scales, const int* res,
+                                     const long long* sizes,
+                                     const long long* offsets,
+                                     void* stream) {
+  Levels lv;
+  if (n <= 0 || !make_levels(n_levels, scales, res, sizes, offsets, &lv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (n_features) {
+    case 1: err = launch_bwd<1>(tet, x, g, d_table, n, n_levels, lv, s); break;
+    case 2: err = launch_bwd<2>(tet, x, g, d_table, n, n_levels, lv, s); break;
+    case 4: err = launch_bwd<4>(tet, x, g, d_table, n, n_levels, lv, s); break;
+    case 8: err = launch_bwd<8>(tet, x, g, d_table, n, n_levels, lv, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

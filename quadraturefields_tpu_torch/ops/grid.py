@@ -6,8 +6,11 @@ the ray/aabb span, each candidate masked by the occupancy binary, and
 the survivors compacted into one flat ray-sorted buffer of static
 length `max_samples_total`, whose padding carries ray index == n_rays.
 The two-level march probes a dilated coarse grid first; its coarse
-lookup is ops/occ_bits.py (a CUDA kernel on the card). The EMA refresh
-(occ_grid_update) comes with the training step.
+lookup is ops/occ_bits.py (a CUDA kernel on the card). Training marches
+with stratified jitter, and `occ_grid_update` refreshes the grid with an
+EMA max of density evaluations at jittered cell positions. The march
+takes its uniforms as a tensor; the update takes a tensor or draws from
+a `torch.Generator`. So tests can hand both JAX's draws.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .activations import contract_to_unisphere
+from .activations import contract_to_unisphere, inv_contract_from_unisphere
 from .occ_bits import bits_lookup_applicable, occupancy_lookup_bits
 
 
@@ -46,6 +49,72 @@ def occ_grid_init(aabb, cfg: OccGridConfig, device=None) -> OccGridState:
                             device=device),
         aabb=torch.as_tensor(aabb, dtype=torch.float32, device=device),
     )
+
+
+def _cell_positions(aabb, res: int, idx_flat, jitter):
+    """World positions of the flat cells idx_flat [P], jittered inside
+    each cell by the uniforms jitter [P, 3] (x, y, z)."""
+    iz = idx_flat // (res * res)
+    iy = (idx_flat // res) % res
+    ix = idx_flat % res
+    coords = torch.stack([ix, iy, iz], dim=-1).to(torch.float32)
+    unit = (coords + jitter) / res
+    return aabb[:3] + unit * (aabb[3:] - aabb[:3])
+
+
+def occ_grid_update(state: OccGridState, step: int, occ_eval_fn,
+                    cfg: OccGridConfig, contract_aabb=None, *,
+                    jitter=None, generator=None) -> OccGridState:
+    """One EMA update (the caller calls it every cfg.update_interval
+    steps). During warm-up (step < cfg.warmup_steps) every partition of
+    the flat grid is evaluated; after it one partition per update, in
+    rotation. occs <- max(decay * occs, occ_eval_fn(x)) on the evaluated
+    cells, and binaries = occs > min(mean(occs), occ_thre).
+
+    occ_eval_fn(x [P, 3] world) -> [P] occupancy (density * step size).
+    jitter: [P, 3] uniforms in [0, 1), P = cells per partition, else
+    drawn from `generator`. One draw serves every partition of a warm-up
+    update, as in JAX (one key for all partitions). With
+    `contract_aabb`, cells live in contracted [0,1]^3 and are mapped
+    back to world space (the unbounded estimator).
+    """
+    res = cfg.resolution
+    n_cells = res**3
+    part = n_cells // cfg.partitions
+    occs = state.occs
+    dev = occs.device
+    if jitter is None:
+        jitter = torch.rand((part, 3), generator=generator, device=dev)
+    jitter = torch.as_tensor(jitter, dtype=torch.float32, device=dev)
+
+    def eval_part(part_id: int):
+        idx = torch.arange(part_id * part, (part_id + 1) * part,
+                           device=dev)
+        if contract_aabb is None:
+            x = _cell_positions(state.aabb, res, idx, jitter)
+        else:
+            unit = _as_f32([0.0, 0.0, 0.0, 1.0, 1.0, 1.0], occs)
+            y = _cell_positions(unit, res, idx, jitter)
+            # clamp away from the contraction's open boundary
+            y = y.clamp(1e-4, 1.0 - 1e-4)
+            x = inv_contract_from_unisphere(y, _as_f32(contract_aabb, occs))
+        return occ_eval_fn(x).reshape(-1).to(torch.float32)
+
+    if cfg.partitions == 1:
+        new_occs = torch.maximum(occs * cfg.ema_decay, eval_part(0))
+    elif step < cfg.warmup_steps:
+        upd = torch.cat([eval_part(p) for p in range(cfg.partitions)])
+        if upd.shape[0] < n_cells:  # non-divisible tail: never updated
+            upd = F.pad(upd, (0, n_cells - upd.shape[0]))
+        new_occs = torch.maximum(occs * cfg.ema_decay, upd)
+    else:
+        p = (step // cfg.update_interval) % cfg.partitions
+        sl = slice(p * part, (p + 1) * part)
+        new_occs = occs.clone()
+        new_occs[sl] = torch.maximum(occs[sl] * cfg.ema_decay, eval_part(p))
+    thre = torch.clamp(new_occs.mean(), max=cfg.occ_thre)
+    binaries = (new_occs > thre).reshape(res, res, res)
+    return OccGridState(occs=new_occs, binaries=binaries, aabb=state.aabb)
 
 
 def _aabb_numpy(aabb) -> np.ndarray:
@@ -154,6 +223,8 @@ def occ_grid_sampling(
     max_samples_total: int,
     near_plane=0.0,   # scalar or per-ray [n_rays]
     far_plane=1e10,   # scalar or per-ray [n_rays]
+    stratified: bool = False,
+    t_jitter=None,    # [n_rays] uniforms in [0, 1), needed by stratified
     coarse_factor: int = 0,
     max_coarse_hits: int = 0,
     coarse_stride: int = 0,
@@ -165,8 +236,8 @@ def occ_grid_sampling(
     [t_min, t_max] from the slab test intersected with [near, far],
     samples at t0 + i*dt whose midpoint cell is occupied. With
     coarse_factor > 1 on a grid whose coarse level keeps >= 32^3 cells,
-    the two-level march gives the same sample set. The stratified
-    (jittered) march of training comes with the training step."""
+    the two-level march gives the same sample set. `stratified` (the
+    training march) shifts each ray's t0 by t_jitter * dt."""
     n_rays = origins.shape[0]
     if contract_aabb is None:
         t_min, t_max, _ = ray_aabb_intersect(origins, viewdirs, state.aabb)
@@ -175,6 +246,10 @@ def occ_grid_sampling(
     else:
         t_min = _as_f32(near_plane, origins).expand(n_rays)
         t_max = _as_f32(far_plane, origins).expand(n_rays)
+    if stratified:
+        if t_jitter is None:
+            raise ValueError("the stratified march needs t_jitter")
+        t_min = t_min + _as_f32(t_jitter, origins) * render_step_size
     if (
         coarse_factor > 1
         and contract_aabb is None

@@ -1,16 +1,18 @@
 """Multiresolution hash-grid encoding (instant-NGP style), PyTorch port.
 
-Port of quadraturefields_tpu/ops/hashgrid.py, corner layout, forward
-only: `HashGridConfig` and its level math (tcnn's formula
+Port of quadraturefields_tpu/ops/hashgrid.py, corner layout:
+`HashGridConfig` and its level math (tcnn's formula
 scale_l = N_min * growth^l - 1, res_l = ceil(scale_l) + 1, dense levels
 padded to a multiple of 8, hashed levels 2^log2_T rows), the table init,
 the dense / xor-prime-hash level indexing, cube and Kuhn-tet corner
-weights, and the encode itself.
+weights, and the encode with its gradient.
 
-`hashgrid_encode` launches the CUDA kernel csrc/hashgrid_encode.cu for
-tensors on the card and runs the plain PyTorch version `encode_plain`
-for tensors on the CPU. The cell layout and the table gradient come
-with the training step.
+`hashgrid_encode` is differentiable in the table and in x. For tensors
+on the card its forward launches csrc/hashgrid_encode.cu
+(`qf_hashgrid_encode`) and its table gradient the fused kernel of the
+same file (`qf_hashgrid_encode_bwd`); for CPU tensors both run their
+plain PyTorch versions, `encode_plain` and `table_grad_plain`. The cell
+layout is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ _PRIMES = (1, 2654435761, 805459861)
 
 @dataclasses.dataclass(frozen=True)
 class HashGridConfig:
-    """Same fields and defaults as the JAX config, so configs carry over;
-    `grad_mode` and `grad_payload` only matter to the table gradient,
-    which the port does not have yet."""
+    """Same fields and defaults as the JAX config, so configs carry over.
+    `grad_mode` "auto", "exact" and "sorted" all give the exact table
+    gradient (one kernel on the card); "stochastic" is not ported yet.
+    `grad_payload` matters only to the cell layout."""
 
     n_levels: int = 16
     n_features: int = 2
@@ -243,40 +246,147 @@ def _level_arrays(cfg: HashGridConfig):
     )
 
 
-def encode_kernel(table: torch.Tensor, x: torch.Tensor,
-                  cfg: HashGridConfig) -> torch.Tensor:
-    """Launch csrc/hashgrid_encode.cu on CUDA tensors x [N, 3] f32 and
-    table [E, F] f32; returns [N, L*F] f32. Forward only: the table
-    gradient is not ported yet, so a table that requires grad raises."""
-    dev = x.device
-    check_cuda_tensor(x, "x", torch.float32, dev, 2)
-    check_cuda_tensor(table, "table", torch.float32, dev, 2)
-    F = cfg.n_features
+def _check_x(x: torch.Tensor, cfg: HashGridConfig) -> None:
+    check_cuda_tensor(x, "x", torch.float32, x.device, 2)
     if x.shape[1] != 3:
         raise ValueError(f"x must be [N, 3], got {tuple(x.shape)}")
-    if table.shape != (cfg.total_entries, F):
+    if cfg.n_features not in (1, 2, 4, 8):
         raise ValueError(
-            f"table is {tuple(table.shape)}, config needs "
-            f"{(cfg.total_entries, F)}"
-        )
-    if F not in (1, 2, 4, 8) or table.data_ptr() % (4 * F):
-        raise ValueError(f"kernel takes aligned F in (1, 2, 4, 8), got {F}")
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise NotImplementedError("the encode kernel has no backward yet")
-    n = x.shape[0]
-    out = torch.empty((n, cfg.output_dim), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
+            f"kernel takes F in (1, 2, 4, 8), got {cfg.n_features}")
+
+
+def _launch_levels(kernel: CudaKernel, x, src, dst, cfg: HashGridConfig):
     scales, res, sizes, offsets = _level_arrays(cfg)
-    ENCODE_KERNEL.launch(
-        dev, ptr(x), ptr(table), ptr(out), n, cfg.n_levels, F,
-        int(cfg.interp == "tet"),
+    kernel.launch(
+        x.device, ptr(x), ptr(src), ptr(dst), x.shape[0], cfg.n_levels,
+        cfg.n_features, int(cfg.interp == "tet"),
         scales.ctypes.data_as(ctypes.c_void_p),
         res.ctypes.data_as(ctypes.c_void_p),
         sizes.ctypes.data_as(ctypes.c_void_p),
         offsets.ctypes.data_as(ctypes.c_void_p),
     )
+
+
+def encode_kernel(table: torch.Tensor, x: torch.Tensor,
+                  cfg: HashGridConfig) -> torch.Tensor:
+    """Launch csrc/hashgrid_encode.cu on CUDA tensors x [N, 3] f32 and
+    table [E, F] f32; returns [N, L*F] f32."""
+    _check_x(x, cfg)
+    check_cuda_tensor(table, "table", torch.float32, x.device, 2)
+    F = cfg.n_features
+    if table.shape != (cfg.total_entries, F):
+        raise ValueError(
+            f"table is {tuple(table.shape)}, config needs "
+            f"{(cfg.total_entries, F)}"
+        )
+    if table.data_ptr() % (4 * F):
+        raise ValueError(f"table must be {4 * F}-byte aligned")
+    n = x.shape[0]
+    out = torch.empty((n, cfg.output_dim), dtype=torch.float32,
+                      device=x.device)
+    if n:
+        _launch_levels(ENCODE_KERNEL, x, table, out, cfg)
     return out
+
+
+def table_grad_plain(x: torch.Tensor, g: torch.Tensor,
+                     cfg: HashGridConfig) -> torch.Tensor:
+    """The plain table gradient of the encode: w * g at every corner of
+    every (point, level), summed per table row with one index_add_ (the
+    JAX "exact" scatter, ops/hashgrid.py:813-829). x [N, 3], g [N, L*F]
+    -> [E, F], summed in f32 (f64 for f64 g, a reference sum)."""
+    n = x.shape[0]
+    L, C, F = cfg.n_levels, cfg.corners, cfg.n_features
+    idx, w = _corner_indices_weights(x.clamp(0.0, 1.0), cfg)
+    dtype = torch.promote_types(g.dtype, torch.float32)
+    g = g.to(dtype).reshape(n, L, 1, F)
+    contrib = w.reshape(n, L, C, 1) * g                  # [N, L, C, F]
+    d_table = torch.zeros((cfg.total_entries, F), dtype=dtype,
+                          device=x.device)
+    d_table.index_add_(0, idx.reshape(-1), contrib.reshape(-1, F))
+    return d_table
+
+
+ENCODE_BWD_KERNEL = CudaKernel(
+    "hashgrid_encode_bwd",
+    "qf_hashgrid_encode_bwd",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:54",
+    library="hashgrid_encode",
+)
+
+
+def table_grad_kernel(x: torch.Tensor, g: torch.Tensor,
+                      cfg: HashGridConfig) -> torch.Tensor:
+    """Launch the fused table-gradient kernel of csrc/hashgrid_encode.cu
+    on CUDA tensors x [N, 3] f32 and g [N, L*F] f32 -> [E, F] f32."""
+    _check_x(x, cfg)
+    check_cuda_tensor(g, "g", torch.float32, x.device, 2)
+    if g.shape != (x.shape[0], cfg.output_dim):
+        raise ValueError(f"g is {tuple(g.shape)}, expected "
+                         f"{(x.shape[0], cfg.output_dim)}")
+    if g.data_ptr() % 8:
+        raise ValueError("g must be 8-byte aligned")
+    d_table = torch.zeros((cfg.total_entries, cfg.n_features),
+                          dtype=torch.float32, device=x.device)
+    if x.shape[0]:
+        _launch_levels(ENCODE_BWD_KERNEL, x, g, d_table, cfg)
+    return d_table
+
+
+def _encode_forward(table, x, cfg: HashGridConfig):
+    if x.device.type == "cpu":
+        return encode_plain(table, x, cfg)
+    return encode_kernel(table, x, cfg)
+
+
+def _table_grad(x, g, cfg: HashGridConfig):
+    if x.device.type == "cpu":
+        return table_grad_plain(x, g, cfg)
+    return table_grad_kernel(x, g, cfg)
+
+
+def _position_grad(table, x, g, cfg: HashGridConfig):
+    """dL/dx through the interpolation weights (ops/hashgrid.py:830-842):
+    dL/dw[c] = sum_f table[row_c, f] * g[f], pulled back through the
+    weights' dependence on x by autograd, as JAX does with jax.vjp. x is
+    the clamped input, and the weights clamp it again."""
+    n = x.shape[0]
+    L, C, F = cfg.n_levels, cfg.corners, cfg.n_features
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        idx, w = _corner_indices_weights(xx.clamp(0.0, 1.0), cfg)
+        feats = table.detach()[idx].to(torch.float32)      # [N, L*C, F]
+        g3 = g.to(torch.float32).reshape(n, L, 1, F)
+        dl_dw = (feats.reshape(n, L, C, F) * g3).sum(dim=3)
+        (d_x,) = torch.autograd.grad(w, xx, dl_dw.reshape(n, L * C))
+    return d_x
+
+
+class _HashGridEncode(torch.autograd.Function):
+    """Encode with its VJP: the table gradient (the fused kernel on the
+    card) and, only when asked for, the position gradient."""
+
+    @staticmethod
+    def forward(ctx, table, x, cfg):
+        xc = x.clamp(0.0, 1.0).contiguous()
+        ctx.cfg = cfg
+        ctx.save_for_backward(table, xc)
+        return _encode_forward(table, xc, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, xc = ctx.saved_tensors
+        cfg = ctx.cfg
+        g = g.to(torch.float32).contiguous()
+        d_table = d_x = None
+        if ctx.needs_input_grad[0]:
+            d_table = _table_grad(xc, g, cfg).to(table.dtype)
+        if ctx.needs_input_grad[1]:
+            d_x = _position_grad(table, xc, g, cfg)
+        return d_table, d_x, None
 
 
 def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,
@@ -284,13 +394,20 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,
     """Encode positions x [N, 3] in [0,1]^3 -> features [N, L*F] f32.
 
     Out-of-range coordinates clamp to the unit cube. CUDA tensors go
-    through the kernel, CPU tensors through `encode_plain`.
+    through the kernels, CPU tensors through the plain versions.
+    Differentiable in `table` and `x`.
     """
     if cfg.layout != "corner":
         raise NotImplementedError("the cell layout is not ported yet")
-    if x.device.type == "cpu":
-        return encode_plain(table, x, cfg)
-    return encode_kernel(table, x, cfg)
+    if cfg.grad_mode not in ("auto", "exact", "sorted", "stochastic"):
+        raise ValueError(f"unknown grad_mode: {cfg.grad_mode!r}")
+    if not (torch.is_grad_enabled()
+            and (table.requires_grad or x.requires_grad)):
+        return _encode_forward(table, x, cfg)
+    if cfg.grad_mode == "stochastic":
+        raise NotImplementedError(
+            'grad_mode "stochastic" is not ported yet')
+    return _HashGridEncode.apply(table, x, cfg)
 
 
 def hashgrid_encode_batched(table, x, cfg: HashGridConfig,

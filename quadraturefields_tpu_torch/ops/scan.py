@@ -5,14 +5,15 @@ package's: a flat ray-sorted sample buffer whose padding carries
 ray_index == n_rays and sigma == 0. Scans are segmented (Hillis-Steele,
 log2(S) doubling steps that reset at segment starts), so a ray's prefix
 sums only its own samples: no f32 global cumsum minus per-ray offsets,
-which cancels catastrophically at millions of samples. Per-ray sums go
-through the presorted segment sum (a CUDA kernel on the card).
+which cancels catastrophically at millions of samples. Autograd
+differentiates the scans. Per-ray sums go through the presorted segment
+sum (a CUDA kernel on the card) and its gather VJP.
 """
 from __future__ import annotations
 
 import torch
 
-from .hashgrid_sorted import presorted_row_segment_sum
+from .hashgrid_sorted import presorted_row_segment_sum_vjp
 
 
 def mark_pack_boundaries(ray_indices: torch.Tensor) -> torch.Tensor:
@@ -87,11 +88,11 @@ def render_weight_from_density(t_starts, t_ends, sigmas, boundaries):
 
 def accumulate_along_rays(weights, ray_indices, values=None, n_rays=None):
     """Per-ray sum of weighted values; padding (ray index == n_rays) is
-    dropped."""
+    dropped. Differentiable in weights and values."""
     if values is None:
         src = weights[..., None]
     else:
         src = weights[..., None] * values
-    return presorted_row_segment_sum(
+    return presorted_row_segment_sum_vjp(
         ray_indices, src.to(torch.float32).contiguous(), n_rays
     )

@@ -1,11 +1,12 @@
 """Packed-sample volume renderer for the stage-1 NGP field.
 
 Port of quadraturefields_tpu/render/renderer.py (stage-1 half): the
-occupancy-grid march, the NGP query at the sample midpoints, and one
-compositor whose per-ray sum is the presorted segment sum (a CUDA
-kernel on the card). `make_test_renderer` is the memory-bounded
-alive-ray window renderer of the evaluation path. The stage-2
-render_rays_field comes with stage 2.
+occupancy-grid march (stratified when training), the NGP query at the
+sample midpoints, and one compositor whose per-ray sum is the
+differentiable presorted segment sum (a CUDA kernel on the card, a
+gather backward). `make_test_renderer` is the memory-bounded alive-ray
+window renderer of the evaluation path. The stage-2 render_rays_field
+comes with stage 2.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from ..ops.grid import (
     occ_grid_sampling,
     ray_aabb_intersect,
 )
-from ..ops.hashgrid_sorted import presorted_row_segment_sum
+from ..ops.hashgrid_sorted import presorted_row_segment_sum_vjp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +58,8 @@ def _composite(samples: PackedSamples, rgbs, sigmas, n_rays: int,
                render_bkgd, early_stop_eps: float, alpha_thre: float):
     """Packed weights -> per-ray color, opacity, depth (+ background).
     Color, opacity and weighted depth go through ONE presorted segment
-    sum of 8-wide rows, as in the JAX package."""
+    sum of 8-wide rows, differentiable (d vals = g[ray]), as in the JAX
+    package."""
     sigmas = torch.where(samples.valid, sigmas, 0.0)
     boundaries = scan.mark_pack_boundaries(samples.ray_indices)
     weights, trans, alphas = scan.render_weight_from_density(
@@ -77,7 +79,7 @@ def _composite(samples: PackedSamples, rgbs, sigmas, n_rays: int,
          torch.zeros((w.shape[0], 3), dtype=torch.float32, device=w.device)],
         dim=1,
     )
-    acc = presorted_row_segment_sum(samples.ray_indices, vals8, n_rays)
+    acc = presorted_row_segment_sum_vjp(samples.ray_indices, vals8, n_rays)
     colors = acc[:, 0:3]
     opacity = acc[:, 3:4]
     depth = acc[:, 4:5] / acc[:, 3:4].clamp_min(1e-10)
@@ -103,8 +105,12 @@ def render_rays_occgrid(
     viewdirs: torch.Tensor,
     rcfg: RenderConfig,
     render_bkgd: Optional[torch.Tensor] = None,
+    stratified: bool = False,
+    t_jitter: Optional[torch.Tensor] = None,
 ) -> RenderResult:
-    """Volume rendering with occupancy-grid sampling (stage-1 path)."""
+    """Volume rendering with occupancy-grid sampling (stage-1 path).
+    `stratified` jitters each ray's march by t_jitter [n_rays] * dt, as
+    the training step does."""
     n_rays = origins.shape[0]
     samples = occ_grid_sampling(
         occ_state,
@@ -115,6 +121,8 @@ def render_rays_occgrid(
         max_samples_total=rcfg.max_samples_total,
         near_plane=rcfg.near_plane,
         far_plane=rcfg.far_plane,
+        stratified=stratified,
+        t_jitter=t_jitter,
         coarse_factor=rcfg.coarse_factor,
         max_coarse_hits=rcfg.max_coarse_hits,
         coarse_stride=rcfg.coarse_stride,

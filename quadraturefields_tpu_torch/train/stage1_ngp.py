@@ -1,32 +1,40 @@
-"""Stage 1: the NGP radiance field with an occupancy grid — evaluation.
+"""Stage 1: train the NGP radiance field with an occupancy grid.
 
-Port of quadraturefields_tpu/train/stage1_ngp.py: the whole
-`Stage1Config`, and the evaluation half of `Stage1Trainer` (construction,
-the one-shot and windowed full-view renders, `evaluate`, save/load).
-The training step, Adam and the occupancy refresh come next; until then
-`params` and `occ_state` are set by the caller (utils/convert.py carries
-JAX weights across, `load` reads the port's checkpoints).
+Port of quadraturefields_tpu/train/stage1_ngp.py: `Stage1Config` field
+for field, and `Stage1Trainer` on one device. A training step renders
+the ray batch with the stratified occupancy-grid march, takes the
+smooth-L1 + regularizer loss, backpropagates (the hash-table gradient is
+a CUDA kernel on the card) and steps Adam with the reference schedule;
+every 16 steps the occupancy grid is refreshed first, and after step 100
+the ray batch is resized to hold the sample count near its budget.
+Evaluation renders full views in fixed chunks, one-shot or windowed.
 
-Datasets are the JAX package's numpy loaders
-(quadraturefields_tpu/data/), used in place: they import no jax.
+The parameters are the JAX `ngp_init` tree of leaf tensors that require
+grad; assigning `trainer.params` (utils/convert.py carries JAX weights
+across) rebuilds the optimizer around the new leaves. The datasets are
+the port's copies of the JAX package's numpy loaders (data/).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from quadraturefields_tpu.data.nerf_synthetic import SubjectLoader
-
-from ..models.ngp import NGPConfig, ngp_init
+from ..data.nerf_synthetic import SubjectLoader
+from ..models.ngp import NGPConfig, ngp_init, ngp_query_density
+from ..ops.distortion import flatten_eff_distloss
 from ..ops.grid import (
     OccGridConfig,
     OccGridState,
     max_march_steps,
     max_march_steps_cone,
     occ_grid_init,
+    occ_grid_update,
     resolve_coarse_stride,
 )
 from ..render.renderer import (
@@ -34,8 +42,10 @@ from ..render.renderer import (
     make_test_renderer,
     render_rays_occgrid,
 )
+from ..utils.batching import bucket_num_rays
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from ..utils.metrics import lpips_metric, psnr, ssim
+from ..utils.metrics import lpips_metric, mse, psnr, smooth_l1_loss, ssim
+from ..utils.optim import make_ngp_optimizer
 
 # the reference's scene-type switch (examples/utils.py:30-45)
 MIPNERF360_UNBOUNDED_SCENES = (
@@ -46,8 +56,9 @@ MIPNERF360_UNBOUNDED_SCENES = (
 @dataclasses.dataclass
 class Stage1Config:
     """The JAX trainer's config, field for field, so configs carry over.
-    `data_sharding`, `num_devices` (data parallelism) and `save_images`
-    are not ported yet; the trainer refuses them."""
+    `data_sharding`, `num_devices` (data parallelism), `save_images` and
+    grad_mode "stochastic" are not ported yet; the trainer refuses
+    them."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -176,8 +187,61 @@ class Stage1Config:
         )
 
 
+def _regularizer(cfg: Stage1Config, acc, result, viewdirs, origins):
+    """The regularizer variants of train_ngp_nerf_sg_occ.py:315-334
+    (JAX stage1_ngp.py:196-229); "none" and unknown names give 0."""
+    if cfg.reg_type == "occ":
+        return (cfg.o_lambda * (-acc * torch.log(acc + 1e-10))).mean()
+    if cfg.reg_type == "entropy":
+        w = result.weights
+        return (cfg.o_lambda * (-w * torch.log(w + 1e-7))).mean()
+    if cfg.reg_type == "cauchy":
+        return cfg.c_lambda * torch.log(1 + result.sigmas**2).mean()
+    if cfg.reg_type == "both":
+        return (
+            (cfg.o_lambda * (-acc * torch.log(acc + 1e-10))).mean()
+            + cfg.c_lambda * torch.log(1 + result.sigmas**2).mean()
+        )
+    if cfg.reg_type == "lol":
+        w = result.weights
+        return (cfg.o_lambda
+                * torch.log(torch.exp(-w) + torch.exp(-(1 - w).abs()))
+                ).mean()
+    if cfg.reg_type == "distortion":
+        s = result.samples
+        n_rays = origins.shape[0]
+        idx = s.ray_indices.clamp(0, n_rays - 1).to(torch.int64)
+        t_mid = (s.t_starts + s.t_ends)[:, None] / 2.0
+        pos = origins[idx] + viewdirs[idx] * t_mid
+        m = (pos * viewdirs[idx]).sum(dim=1).abs()
+        return cfg.o_lambda * flatten_eff_distloss(
+            result.weights, m,
+            torch.full_like(result.weights, cfg.render_step_size),
+            s.ray_indices, n_rays,
+        )
+    return torch.zeros((), device=acc.device)
+
+
+def _leaves(tree):
+    """The tensors of a params tree, in the tree's order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _as_leaf_params(tree):
+    """A params tree of detached leaf tensors that require grad."""
+    if isinstance(tree, dict):
+        return {k: _as_leaf_params(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_as_leaf_params(v) for v in tree]
+    return tree.detach().requires_grad_(True)
+
+
 class Stage1Trainer:
-    """Evaluation half of the stage-1 trainer, on one device."""
+    """The stage-1 trainer on one device."""
 
     def __init__(self, cfg: Stage1Config, train_dataset=None,
                  test_dataset=None, device="cuda"):
@@ -185,6 +249,9 @@ class Stage1Trainer:
             raise NotImplementedError("data parallelism is not ported yet")
         if cfg.save_images:
             raise NotImplementedError("saving eval images is not ported yet")
+        if cfg.grad_mode == "stochastic":
+            raise NotImplementedError(
+                'grad_mode "stochastic" is not ported yet')
         # full-f32 matmuls and convolutions: the bf16-operand MLP keeps
         # f32 products (ops/mlp.py) and SSIM needs f32 variances
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -199,9 +266,7 @@ class Stage1Trainer:
         self.aabb = torch.as_tensor(cfg.aabb, device=self.device)
 
         if cfg.is_unbounded:
-            from quadraturefields_tpu.data.nerf_360_v2 import (
-                SubjectLoader as Loader360,
-            )
+            from ..data.nerf_360_v2 import SubjectLoader as Loader360
 
             self.train_dataset = train_dataset or Loader360(
                 subject_id=cfg.scene, root_fp=cfg.data_root,
@@ -224,11 +289,157 @@ class Stage1Trainer:
                 num_rays=None,
             )
 
-        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        self.params = ngp_init(gen, self.ngp_cfg, self.device)
-        self.occ_state = occ_grid_init(self.aabb, self.occ_cfg, self.device)
+        wd = cfg.weight_decay
+        if wd is None:
+            if cfg.is_unbounded:
+                wd = 0.0  # reference train_ngp_nerf_sg_occ.py:164
+            else:
+                wd = (1e-5 if cfg.scene in ("materials", "ficus", "drums")
+                      else 1e-6)
+        self.weight_decay = wd
         self.step = 0
+        # one generator for the init, then the march and occupancy jitter
+        self.generator = torch.Generator(device=self.device) \
+            .manual_seed(cfg.seed)
+        self.params = _as_leaf_params(
+            ngp_init(self.generator, self.ngp_cfg, self.device))
+        self._make_optimizer()
+        self.occ_state = occ_grid_init(self.aabb, self.occ_cfg, self.device)
         self._window_render = None  # built on the first windowed eval
+
+    def _make_optimizer(self):
+        """A fresh Adam over self.params, its schedule continuing from
+        self.step. Call it after replacing the params."""
+        self.optimizer, self.scheduler = make_ngp_optimizer(
+            _leaves(self.params), self.cfg.max_steps, lr=self.cfg.lr,
+            weight_decay=self.weight_decay, start_step=self.step)
+
+    # ---- the training step ----
+    def _occ_update_impl(self, step: int) -> OccGridState:
+        def occ_eval_fn(x):
+            d = ngp_query_density(self.params, x, self.aabb, self.ngp_cfg)
+            return d[..., 0] * self.rcfg.render_step_size
+
+        with torch.no_grad():
+            return occ_grid_update(
+                self.occ_state, step, occ_eval_fn, self.occ_cfg,
+                contract_aabb=self.aabb if self.cfg.is_unbounded else None,
+                generator=self.generator,
+            )
+
+    def _loss_fn(self, params, occ_state, origins, viewdirs, pixels, bkgd,
+                 t_jitter):
+        """(loss, aux) of one batch; t_jitter [n_rays] are the stratified
+        march's uniforms."""
+        result = render_rays_occgrid(
+            params, self.aabb, self.ngp_cfg, occ_state, origins, viewdirs,
+            self.rcfg, render_bkgd=bkgd, stratified=True, t_jitter=t_jitter,
+        )
+        rgb_loss = smooth_l1_loss(result.rgb, pixels)
+        acc = result.opacity[:, 0]
+        reg = _regularizer(self.cfg, acc, result, viewdirs, origins)
+        loss = rgb_loss + reg
+        aux = {
+            "rgb_loss": rgb_loss.detach(),
+            "reg": reg.detach(),
+            "num_valid": result.num_valid,
+            "mse": mse(result.rgb, pixels).detach(),
+        }
+        return loss, aux
+
+    def _train_step_impl(self, origins, viewdirs, pixels, bkgd, t_jitter):
+        """Loss, backward and one Adam update (the schedule steps after
+        it); returns (loss, aux)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self._loss_fn(self.params, self.occ_state, origins,
+                                  viewdirs, pixels, bkgd, t_jitter)
+        loss.backward()
+        self.optimizer.step()
+        self.scheduler.step()
+        return loss.detach(), aux
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def train_one_step(self):
+        cfg = self.cfg
+        step = self.step
+        if step % self.occ_cfg.update_interval == 0:
+            self.occ_state = self._occ_update_impl(step)
+
+        data = self.train_dataset.fetch_train_batch()
+        origins = self._to_device(data["rays"].origins)
+        viewdirs = self._to_device(data["rays"].viewdirs)
+        pixels = self._to_device(data["pixels"])
+        bkgd = self._to_device(data["color_bkgd"])
+        t_jitter = torch.rand((origins.shape[0],), generator=self.generator,
+                              device=self.device)
+        loss, aux = self._train_step_impl(origins, viewdirs, pixels, bkgd,
+                                          t_jitter)
+
+        n_valid = int(aux["num_valid"])
+        if cfg.target_sample_batch_size > 0 and step > 100 and n_valid > 0:
+            num_rays = int(
+                len(pixels) * cfg.target_sample_batch_size / float(n_valid)
+            )
+            self.train_dataset.update_num_rays(
+                bucket_num_rays(num_rays, max_rays=cfg.max_num_rays)
+            )
+        self.step += 1
+        return loss, aux
+
+    def train(self, log_fn=print):
+        """Steps 0..max_steps with logging and checkpoints, then the
+        final evaluate; writes args.json and log.json under
+        root/results/<scene>/<exp_name>."""
+        cfg = self.cfg
+        out_dir = os.path.join(cfg.root, "results", cfg.scene, cfg.exp_name)
+        ckpt_dir = os.path.join(cfg.root, "ckpts", cfg.scene, cfg.exp_name)
+        os.makedirs(out_dir, exist_ok=True)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "args.json"), "w") as f:
+            json.dump(
+                {k: v for k, v in dataclasses.asdict(cfg).items()
+                 if not k.startswith("data_sharding")},
+                f, indent=2, default=str,
+            )
+
+        from ..utils.logging import ExperimentLogger
+
+        logger = ExperimentLogger(
+            os.path.join(cfg.root, "logs", cfg.scene, cfg.exp_name),
+            results_dir=out_dir,
+        )
+        tic = time.time()
+        rays_done = 0
+        while self.step <= cfg.max_steps:
+            step = self.step
+            loss, aux = self.train_one_step()
+            rays_done += self.train_dataset.num_rays
+
+            if step % cfg.log_every == 0:
+                train_psnr = -10.0 * float(torch.log10(aux["mse"]))
+                elapsed = time.time() - tic
+                logger.add_scalar("train/loss", float(loss), step)
+                logger.add_scalar("train/psnr", train_psnr, step)
+                logger.add_scalar("train/n_rendering_samples",
+                                  int(aux["num_valid"]), step)
+                log_fn(
+                    f"elapsed_time={elapsed:.2f}s | step={step} | "
+                    f"loss={float(loss):.5f} | psnr={train_psnr:.2f} | "
+                    f"n_samples={int(aux['num_valid'])} | "
+                    f"num_rays={self.train_dataset.num_rays} | "
+                    f"rays/s={rays_done / max(elapsed, 1e-9):.0f}"
+                )
+            if step > 0 and step % cfg.ckpt_every == 0:
+                self.save(os.path.join(ckpt_dir, "ngp.pt"))
+        metrics = self.evaluate()
+        logger.add_scalar("test/psnr", metrics["psnr"], self.step)
+        logger.add_scalar("test/ssim", metrics["ssim"], self.step)
+        logger.close()
+        with open(os.path.join(out_dir, "log.json"), "a") as f:
+            json.dump({"step": self.step - 1, **metrics}, f)
+        return metrics
 
     def _eval_render_impl(self, params, occ_state, origins, viewdirs):
         """One-shot render of one chunk with the eval sample budget
@@ -319,17 +530,23 @@ class Stage1Trainer:
         }
 
     def save(self, path):
+        """Weights, occupancy grid, Adam state and step, as the JAX
+        trainer's save."""
         save_checkpoint(path, {
             "params": self.params,
             "occs": self.occ_state.occs,
             "binaries": self.occ_state.binaries,
+            "opt_state": self.optimizer.state_dict(),
             "step": self.step,
         })
 
     def load(self, path):
         state = load_checkpoint(path, map_location=self.device)
-        self.params = state["params"]
+        self.step = int(state["step"])
+        self.params = _as_leaf_params(state["params"])
+        self._make_optimizer()
+        if "opt_state" in state:
+            self.optimizer.load_state_dict(state["opt_state"])
         self.occ_state = OccGridState(
             occs=state["occs"], binaries=state["binaries"], aabb=self.aabb
         )
-        self.step = int(state["step"])

@@ -1,0 +1,171 @@
+"""The port's table gradients against the JAX package's, on the same
+seeded numpy inputs: the encode VJP (table and positions), K1's
+interface (sorted_table_grad), K8's interface (the bf16 value-space
+form) and the VJP of the presorted segment sum. JAX runs on the CPU,
+its Pallas kernels in interpret mode as its own tests run them; the
+port runs each kernel's plain PyTorch version."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quadraturefields_tpu.ops import hashgrid as jhg
+from quadraturefields_tpu.ops import hashgrid_backward as jhb
+from quadraturefields_tpu.ops import hashgrid_sorted as jhs
+from quadraturefields_tpu_torch.ops import hashgrid as thg
+from quadraturefields_tpu_torch.ops import hashgrid_backward as thb
+from quadraturefields_tpu_torch.ops import hashgrid_sorted as ths
+
+torch.set_num_threads(1)
+
+
+def _grid_kw(interp, n_features, grad_mode):
+    return dict(n_levels=4, n_features=n_features, log2_hashmap_size=10,
+                base_resolution=4, per_level_scale=2.0, interp=interp,
+                grad_mode=grad_mode)
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+@pytest.mark.parametrize("n_features", [1, 2, 4])
+def test_encode_vjp_matches_jax(interp, n_features):
+    """d_table within rel 1e-5 of max |d_table| (f32 sums in another
+    order) and d_x within atol 1e-4 of jax.vjp of the "exact" encode;
+    the port's default "auto" mode gives the same function."""
+    jcfg = jhg.HashGridConfig(**_grid_kw(interp, n_features, "exact"))
+    tcfg = thg.HashGridConfig(**_grid_kw(interp, n_features, "auto"))
+    rng = np.random.default_rng(n_features)
+    table = rng.uniform(-1, 1, (jcfg.total_entries, n_features)) \
+        .astype(np.float32)
+    x = rng.uniform(0.02, 0.98, (700, 3)).astype(np.float32)
+    g = rng.normal(size=(700, jcfg.output_dim)).astype(np.float32)
+
+    out_j, pull = jax.vjp(lambda t, xx: jhg.hashgrid_encode(t, xx, jcfg),
+                          jnp.asarray(table), jnp.asarray(x))
+    dt_j, dx_j = (np.asarray(a) for a in pull(jnp.asarray(g)))
+
+    tt = torch.tensor(table, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    out_t = thg.hashgrid_encode(tt, tx, tcfg)
+    dt_t, dx_t = torch.autograd.grad(out_t, (tt, tx), torch.tensor(g))
+
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=0, atol=1e-5)
+    scale = np.abs(dt_j).max()
+    assert np.abs(dt_t.numpy() - dt_j).max() <= 1e-5 * scale
+    np.testing.assert_allclose(dx_t.numpy(), dx_j, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["exact", "sorted"])
+def test_grad_modes_share_one_function(mode):
+    """"exact" and "sorted" give the "auto" gradient bit for bit;
+    "stochastic" is refused."""
+    kw = _grid_kw("tet", 2, "auto")
+    rng = np.random.default_rng(3)
+    cfg = thg.HashGridConfig(**kw)
+    table = torch.tensor(
+        rng.uniform(-1, 1, (cfg.total_entries, 2)).astype(np.float32),
+        requires_grad=True)
+    x = torch.tensor(rng.uniform(0, 1, (300, 3)).astype(np.float32))
+
+    def grad(m):
+        c = thg.HashGridConfig(**dict(kw, grad_mode=m))
+        return torch.autograd.grad(
+            (thg.hashgrid_encode(table, x, c) ** 2).sum(), table)[0]
+
+    assert torch.equal(grad(mode), grad("auto"))
+    with pytest.raises(NotImplementedError):
+        grad("stochastic")
+
+
+def _pairs_case(m, total_entries, seed, kind="uniform"):
+    rng = np.random.default_rng(seed)
+    W = jhs.W
+    if kind == "uniform":
+        idx = rng.integers(0, total_entries, m)
+    elif kind == "spanning":
+        lo = rng.integers(0, 64 * W // 2, m // 2)
+        hi = rng.integers(64 * W * 7, 64 * W * 8, m - m // 2)
+        idx = np.concatenate([lo, hi])
+    else:  # duplicate-heavy
+        idx = rng.integers(0, 37, m)
+    idx = idx.astype(np.int32)
+    v0 = rng.normal(size=m).astype(np.float32)
+    v1 = rng.normal(size=m).astype(np.float32)
+    return idx, v0, v1
+
+
+@pytest.mark.parametrize(
+    "m,total_entries,kind",
+    [
+        (jhs.TILE, 64 * jhs.W * 2, "uniform"),
+        (jhs.TILE * 3 + 517, 64 * jhs.W * 5, "uniform"),
+        (1000, 64 * 8, "uniform"),
+        (2 * jhs.TILE, 64 * jhs.W * 8, "spanning"),
+        (2 * jhs.TILE, 64 * jhs.W, "duplicates"),
+        (jhs.TILE + 1, 64 * jhs.W + 77, "uniform"),
+    ],
+)
+def test_sorted_table_grad_matches_jax_k1(m, total_entries, kind):
+    """The port's K1 interface (plain: one index_add_) against JAX's K1
+    in interpret mode, on the cases of tests/test_hashgrid_sorted.py and
+    a tail that is not a multiple of the 8192-contribution tile: within
+    1e-5 of max |want| (f32 sums in another order)."""
+    idx, v0, v1 = _pairs_case(m, total_entries, m, kind)
+    want = np.asarray(jhs.sorted_table_grad(
+        jnp.asarray(idx), jnp.asarray(v0), jnp.asarray(v1), total_entries))
+    got = ths.sorted_table_grad(torch.tensor(idx), torch.tensor(v0),
+                                torch.tensor(v1), total_entries).numpy()
+    assert got.shape == want.shape == (total_entries, 2)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    if kind == "spanning":
+        assert np.all(got[64 * jhs.W:64 * jhs.W * 7] == 0.0)
+
+
+@pytest.mark.parametrize(
+    "m,total_values,clustered",
+    [(4096, 128 * 2048, False), (4096, 128 * 2048, True),
+     (1024, 128 * 65536, False), (1000, 128 * 512 + 64, False)],
+)
+def test_k8_matches_jax(m, total_values, clustered):
+    """K8's interface against JAX's K8 in interpret mode: both round the
+    values to bf16 and sum in f32, so within 1e-5 of max |want|."""
+    rng = np.random.default_rng(m + clustered)
+    n_rows = total_values // 128
+    hi = max(n_rows // 64, 1) if clustered else n_rows
+    rows = rng.integers(0, hi, m).astype(np.int32)
+    lane0 = (rng.integers(0, 64, m) * 2).astype(np.int32)
+    v0 = rng.normal(size=m).astype(np.float32)
+    v1 = rng.normal(size=m).astype(np.float32)
+    want = np.asarray(jhb.sorted_table_grad(
+        jnp.asarray(rows), jnp.asarray(lane0), jnp.asarray(v0),
+        jnp.asarray(v1), total_values, interpret=True))
+    got = thb.sorted_table_grad(torch.tensor(rows), torch.tensor(lane0),
+                                torch.tensor(v0), torch.tensor(v1),
+                                total_values).numpy()
+    assert got.shape == want.shape == (total_values,)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_segment_sum_vjp_matches_jax():
+    """presorted_row_segment_sum_vjp: the values' gradient is the
+    gather g[keys] with sentinel rows zeroed, exactly as JAX's."""
+    rng = np.random.default_rng(5)
+    n_seg = 50
+    keys = np.sort(rng.integers(0, n_seg, 900)).astype(np.int32)
+    keys = np.concatenate([keys, np.full(124, n_seg, np.int32)])
+    vals = rng.normal(size=(keys.shape[0], 8)).astype(np.float32)
+    g = rng.normal(size=(n_seg, 8)).astype(np.float32)
+
+    out_j, pull = jax.vjp(
+        lambda v: jhs.presorted_row_segment_sum_vjp(jnp.asarray(keys), v,
+                                                    n_seg),
+        jnp.asarray(vals))
+    (dv_j,) = pull(jnp.asarray(g))
+    tv = torch.tensor(vals, requires_grad=True)
+    out_t = ths.presorted_row_segment_sum_vjp(torch.tensor(keys), tv, n_seg)
+    (dv_t,) = torch.autograd.grad(out_t, tv, torch.tensor(g))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(dv_t.numpy(), np.asarray(dv_j))
+    assert np.all(dv_t.numpy()[900:] == 0.0)

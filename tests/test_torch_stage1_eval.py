@@ -1,6 +1,7 @@
 """The port's stage-1 evaluation against the JAX trainer's, on the same
 weights, occupancy grid and fixture views; the port's metrics and
-checkpoints; and a check that the port runs without importing jax."""
+checkpoints; and a check that the port trains and renders without
+importing jax or the JAX package."""
 import os
 import subprocess
 import sys
@@ -55,8 +56,9 @@ def trainers(tmp_path_factory):
         occs=jnp.asarray(occs), binaries=jnp.asarray(binaries))
 
     ttr = tst.Stage1Trainer(tst.Stage1Config(**_config(root)), device="cpu")
-    ttr.params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                        jtr.params))
+    ttr.params = tst._as_leaf_params(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jtr.params)))
+    ttr._make_optimizer()
     ttr.occ_state = occ_state_from_jax(occs, binaries, ttr.cfg.aabb)
     return jtr, ttr
 
@@ -136,31 +138,45 @@ def test_metrics_match_jax():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port, renders a tiny batch, and
-    has not imported jax."""
+    """A fresh interpreter imports the port, takes one training step and
+    renders a tiny batch on the CPU, and has imported neither jax nor
+    any module of the JAX package."""
     code = """
 import sys
 import numpy as np, torch
 from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config, Stage1Trainer
-from quadraturefields_tpu.data.nerf_synthetic import Rays
+from quadraturefields_tpu_torch.data.nerf_synthetic import Rays
 
 class Views:
     HEIGHT = WIDTH = 16
+    num_rays = 256
     def __len__(self):
         return 1
+    def update_num_rays(self, n):
+        self.num_rays = n
     def fetch_eval_view(self, i):
         d = np.tile([[0.0, 0.1, 1.0]], (256, 1)).astype(np.float32)
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         o = np.tile([[0.0, 0.0, -3.0]], (256, 1)).astype(np.float32)
-        return {"pixels": np.ones((256, 3), np.float32), "rays": Rays(o, d)}
+        return {"pixels": np.ones((256, 3), np.float32), "rays": Rays(o, d),
+                "color_bkgd": np.ones(3, np.float32)}
+    def fetch_train_batch(self):
+        return self.fetch_eval_view(0)
 
 cfg = Stage1Config(n_levels=2, log2_hashmap_size=10, grid_resolution=32,
                    eval_chunk=256, batch_size_log2=12)
 tr = Stage1Trainer(cfg, train_dataset=Views(), test_dataset=Views(),
                    device="cpu")
+before = tr.params["table"].clone()
+loss, aux = tr.train_one_step()
+assert np.isfinite(float(loss)) and tr.step == 1, loss
+assert not torch.equal(tr.params["table"], before)
 m = tr.evaluate()
 assert np.isfinite(m["psnr"]), m
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
+ref = sorted(k for k in sys.modules if k == "quadraturefields_tpu"
+             or k.startswith("quadraturefields_tpu."))
+assert not ref, ref
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
