@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # all phases
     python3 chip_smoke.py --profile   # and a torch.profiler breakdown of
-                                      # the training step after phase 4
+                                      # the training steps of phases 4
+                                      # and 5
 
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
@@ -12,8 +13,10 @@ Phases (any failure raises and exits non-zero):
      the main paths' shapes, and time both (and the one-call library
      equivalent where there is one): the encode (K2), the occupancy
      bits (K4), the per-ray segment sum (K3), the fused table gradient
-     (K1) at 2^18 points, the pair segment sum at 16.8M contributions
-     and K8's bf16 value-space wrapper;
+     (K1) at 2^18 points, the pair segment sum at 16.8M contributions,
+     K8's bf16 value-space wrapper, and the cell layout's table
+     gradients K5, K6 and K7 at 8.4M contributions into the 439,472
+     rows of the run_nerfsynthetic_tpu_fast.sh grid (K7 also at F = 2);
   3. the evaluation path: render fixture views at full model width
      (Stage1Config defaults, seeded random weights) through
      Stage1Trainer.evaluate with the one-shot renderer, count each
@@ -25,7 +28,11 @@ Phases (any failure raises and exits non-zero):
      that the loss halves, the final eval PSNR passes 20 dB and the
      occupancy grid is pruned below half; report steady-state ms/step,
      rays/s and samples/s over steps 150-300; then hold one training
-     step on the kernel path against the plain path on the card.
+     step on the kernel path against the plain path on the card;
+  5. the cell training path: the same at run_nerfsynthetic_tpu_fast.sh's
+     configuration (cell layout L8 F4 tet, bf16factor table gradient,
+     mlp head, 2 head layers, a 2^20-sample budget); K7 must launch
+     once a step, K5 and K6 never.
 The last two lines of standard output are a JSON summary of the kernels
 and the result line {"ok": true, "device": {...}}.
 """
@@ -349,6 +356,90 @@ def compare_kernels(torch, dev, report):
     check(rel <= 1e-5, f"K8 wrapper disagrees: {rel}")
 
 
+def as_f64(args):
+    """args with every floating tensor in float64."""
+    return [a.double() if hasattr(a, "is_floating_point")
+            and a.is_floating_point() else a for a in args]
+
+
+def compare_cell_kernels(torch, dev, report):
+    """Phase 2, the cell table gradients: K7, K6 and K5 on contributions
+    of 2^20 uniform points through the tet cell grid of
+    run_nerfsynthetic_tpu_fast.sh (L8 F4, 2^16 rows a hashed level:
+    E = 439,472 rows of 32 floats, M = 8,388,608), g ~ N(0, 1); K7 also
+    on the L16 F2 cell grid (E = 903,456, M = 16.8M), which the trainer
+    never routes there. Reference: the plain version summed in float64
+    on the same inputs, limit 1e-5 * max |want| (the atomics add in a
+    varying order). library_ms: one index_add_ of the prepared [M, 8F]
+    f32 contribution rows into [E, 8F]."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 1 << 20
+    x = torch.rand((n, 3), generator=g, device=dev)
+
+    def run(label, kernel, plain, args, rows, n_bytes, n_ops):
+        idx, e = args[0], args[-1]
+        got = kernel(*args)
+        want = plain(*as_f64(args))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        del got, want
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+        acc = torch.zeros((e, rows.shape[1]), device=dev)
+        lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, rows))
+        b = bound(n_bytes, n_ops)
+        print(f"{label}: {idx.shape[0]} contributions into {e} rows x "
+              f"{rows.shape[1]}: max_abs_err {err}, relative {rel} (limit "
+              f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_add_ of the [M, {rows.shape[1]}] rows {lib_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(rel <= 1e-5, f"{label} disagrees: {rel}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, **b)
+
+    results = {}
+    for L, F in ((8, 4), (16, 2)):
+        cfg = hg.HashGridConfig.from_max_resolution(
+            4096, n_levels=L, n_features=F, log2_hashmap_size=16,
+            interp="tet", layout="cell")
+        e, m = cfg.total_entries, n * L
+        check(e == {4: 439_472, 2: 903_456}[F], f"cell grid has {e} rows")
+        idx, wk, s1, s2 = hg._cell_tet_levels(x, cfg)
+        cot = torch.randn((m, F), generator=g, device=dev)
+        args = (idx.reshape(-1), wk.reshape(m, 4), s1.reshape(-1),
+                s2.reshape(-1), cot, e)
+        out_bytes = e * 8 * F * 4
+        # idx int64, wk, s1, s2 int32, g; a multiply and an add for each
+        # of the 4 x F products
+        results[F] = run(
+            f"cell factor grad (K7) L{L} F{F}", hs.tet_factor_grad_kernel,
+            hs.tet_factor_grad_plain, args, hs.factor_rows(*args[1:5]),
+            m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F)
+        del idx, wk, s1, s2, args
+        if F == 4:
+            idx, w8 = hg._cell_indices_weights(x, cfg)
+            idx, w8 = idx.reshape(-1), w8.reshape(m, 8, 1)
+            lo = (w8 * cot[:, None, 0::2]).reshape(m, 4 * F)
+            hi = (w8 * cot[:, None, 1::2]).reshape(m, 4 * F)
+            report["cell_pair_grad"] = run(
+                f"cell pair grad (K6) L{L} F{F}", hs.pair_grad_kernel,
+                hs.pair_grad_plain, (idx, lo, hi, e), hs.pair_rows(lo, hi),
+                m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F)
+            del lo, hi
+            vals = (w8 * cot[:, None, :]).reshape(m, 8 * F)
+            report["cell_row_grad"] = run(
+                f"cell row grad (K5) L{L} F{F}", hs.row_grad_kernel,
+                hs.row_grad_plain, (idx, vals, e), vals,
+                m * (8 + 32 * F) + out_bytes, m * 8 * F)
+            del vals, w8, idx
+        del cot
+    report["cell_factor_grad"] = dict(results[4], at_f2=results[2])
+
+
 def fixture_occupancy(trainer):
     """The fixture sphere's occupancy on the trainer's grid (4.1% of the
     128^3 cells), filled as bench.py fills the JAX grid."""
@@ -383,6 +474,9 @@ def plain_path():
         (hg, "table_grad_kernel", hg.table_grad_plain),
         (ob, "lookup_bits_kernel", ob.lookup_bits_plain),
         (hs, "segment_sum_kernel", hs.segment_sum_plain),
+        (hs, "row_grad_kernel", hs.row_grad_plain),
+        (hs, "pair_grad_kernel", hs.pair_grad_plain),
+        (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain),
     ):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
@@ -502,16 +596,14 @@ def step_grads(torch, trainer, batch):
     return float(loss.detach()), grads
 
 
-def train_slice(torch, kernels, card, views, profile: bool):
-    """Phase 4: Stage1Trainer.train at the defaults for 300 steps."""
-    from quadraturefields_tpu_torch.train.stage1_ngp import (
-        Stage1Config,
-        Stage1Trainer,
-    )
+def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
+                profile: bool):
+    """Phases 4 and 5: Stage1Trainer.train at `cfg` for 300 steps. Every
+    kernel named in `must_launch` must launch in the run; `table_grad`
+    names the table-gradient kernel whose output compare_step holds
+    against a float64 sum. Returns (launches, training steps)."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Trainer
 
-    root = tempfile.mkdtemp(prefix="qf_smoke_")
-    cfg = Stage1Config(max_steps=300, log_every=50, ckpt_every=10**9,
-                       root=root, scene="fixture")
     views.update_num_rays(cfg.init_batch_size)
     trainer = Stage1Trainer(cfg, train_dataset=views, test_dataset=views)
     budget = trainer.rcfg.max_samples_total
@@ -536,8 +628,7 @@ def train_slice(torch, kernels, card, views, profile: bool):
     print(f"train: {len(record)} steps + final evaluate in {train_s:.2f} s; "
           f"eval {metrics}; occupied cells {occ_frac:.4f}; kernel "
           f"launches {launches}")
-    for name in ("hashgrid_encode", "occ_bits", "segment_sum",
-                 "hashgrid_encode_bwd"):
+    for name in must_launch:
         check(launches[name] > 0, f"the training path never launched {name}")
     check(all(np.isfinite(losses)), "non-finite training loss")
     first, last = np.mean(losses[:20]), np.mean(losses[-20:])
@@ -554,7 +645,8 @@ def train_slice(torch, kernels, card, views, profile: bool):
     samples = sum(r[2] for r in record[151:301])
     steady_s = t_b - t_a
     ms_step = steady_s / 150 * 1e3
-    print(f"stage-1 training, steps 150-300: {ms_step:.3f} ms/step, "
+    print(f"stage-1 training ({cfg.layout} layout), steps 150-300: "
+          f"{ms_step:.3f} ms/step, "
           f"{rays / steady_s:.1f} rays/s, {samples / steady_s:.1f} "
           f"samples/s (valid samples, at most {budget} a step); batch now "
           f"{views.num_rays} rays [{card}]")
@@ -570,43 +662,45 @@ def train_slice(torch, kernels, card, views, profile: bool):
     batch.append(torch.rand((batch[0].shape[0],), generator=trainer.generator,
                             device=dev))
     for dtype in ("float32", "bfloat16"):
-        compare_step(torch, trainer, kernels, batch, dtype)
+        compare_step(torch, trainer, kernels, batch, dtype, table_grad)
 
     if profile:
         profile_steps(torch, trainer, card)
-    return launches, dict(ms_step=ms_step, rays_per_s=rays / steady_s,
-                          samples_per_s=samples / steady_s)
+    return launches, len(record)
 
 
-def compare_step(torch, trainer, kernels, batch, compute_dtype):
+def compare_step(torch, trainer, kernels, batch, compute_dtype, table_grad):
     """Loss and gradients of one training step, kernel path against
     plain path, with the MLPs in `compute_dtype`. The loss must agree
-    within 1e-5 relative. The fused table-gradient kernel's output in the
-    kernel-path step must lie within 1e-5 * max |want| of the plain
-    table gradient summed in float64 on the same inputs (the atomics add
-    in a varying order). Every gradient must lie within a limit times
-    its max |grad| of the plain path's: in float32 1e-4; in bfloat16
-    8 times the plain path's own spread (the largest such error between
-    its first step and three more on the same inputs), and at least
-    2^-8, bf16's unit roundoff. The plain path is not deterministic on
-    the card: its index_add_ composite adds with atomics, and in bf16
-    the operand casts turn those f32 ulps into bf16 rounding flips."""
+    within 1e-5 relative. The table-gradient kernel's output in the
+    kernel-path step (`table_grad` = (module, kernel function name, its
+    plain version)) must lie within 1e-5 * max |want| of the plain
+    version summed in float64 on the inputs it was given (the atomics
+    add in a varying order). Every gradient must lie within a limit
+    times its max |grad| of the plain path's: in float32 1e-4; in
+    bfloat16 8 times the plain path's own spread (the largest such error
+    between its first step and three more on the same inputs), and at
+    least 2^-8, bf16's unit roundoff. The plain path is not
+    deterministic on the card: its index_add_ composite adds with
+    atomics, and in bf16 the operand casts turn those f32 ulps into bf16
+    rounding flips. A cell table gradient with a bf16 payload rounds
+    every contribution to bf16, so its leaf takes the bf16 rule (with
+    its own spread) in float32 too."""
     import dataclasses
 
-    from quadraturefields_tpu_torch.ops import hashgrid as hg
-
+    mod, name, plain = table_grad
     saved = trainer.ngp_cfg
     trainer.ngp_cfg = dataclasses.replace(saved, compute_dtype=compute_dtype)
     table_calls = []
-    kernel = hg.table_grad_kernel
+    kernel = getattr(mod, name)
 
-    def recording(x, g, cfg):
-        out = kernel(x, g, cfg)
-        table_calls.append((x, g, cfg, out))
+    def recording(*args):
+        out = kernel(*args)
+        table_calls.append((args, out))
         return out
 
     try:
-        with mock.patch.object(hg, "table_grad_kernel", recording):
+        with mock.patch.object(mod, name, recording):
             loss_k, grads_k = step_grads(torch, trainer, batch)
         before = {k.name: k.launches for k in kernels}
         with plain_path():
@@ -621,27 +715,36 @@ def compare_step(torch, trainer, kernels, batch, compute_dtype):
         return [float((x - y).abs().max() / y.abs().max())
                 for x, y in zip(a, b)]
 
-    check(len(table_calls) == 1, f"{len(table_calls)} table-gradient calls")
-    x, g, cfg, got = table_calls[0]
-    want = hg.table_grad_plain(x, g.double(), cfg)
+    check(len(table_calls) == 1, f"{len(table_calls)} calls of {name}")
+    args, got = table_calls[0]
+    want = plain(*as_f64(args))
     table_err = float((got - want).abs().max() / want.abs().max())
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     errs = rel(grads_k, grads_p)
-    spread = max(max(rel(r, grads_p)) for r in reruns)
-    limit = 1e-4 if compute_dtype == "float32" else max(8 * spread, 2**-8)
+    spreads = [max(leaf) for leaf in zip(*(rel(r, grads_p) for r in reruns))]
+    spread = max(spreads)
+    if compute_dtype == "float32":
+        limits = [1e-4] * len(errs)
+        ngp = trainer.ngp_cfg
+        if ngp.layout == "cell" and ngp.grad_payload != "f32":
+            limits[0] = max(8 * spreads[0], 2**-8)
+    else:
+        limits = [max(8 * spread, 2**-8)] * len(errs)
     print(f"one training step ({compute_dtype} MLPs), kernel path vs plain "
           f"path: loss {loss_k} vs {loss_p} (relative {loss_rel}, limit "
-          f"1e-5); fused table gradient vs float64 plain sum, same inputs: "
+          f"1e-5); {name} output vs float64 plain sum, same inputs: "
           f"{table_err} of max (limit 1e-5); gradient error / max |grad| "
-          f"per leaf (table first) {errs} (limit {limit}); plain path vs "
-          f"itself, largest of three reruns {spread}")
+          f"per leaf (table first) {errs} (limits {limits}); plain path vs "
+          f"itself, largest of three reruns per leaf {spreads}")
     check(loss_rel <= 1e-5, f"kernel-path loss disagrees: {loss_rel}")
-    check(table_err <= 1e-5, f"fused table gradient disagrees: {table_err}")
-    check(max(errs) <= limit, f"kernel-path gradients disagree: {errs}")
+    check(table_err <= 1e-5, f"{name} in the step disagrees: {table_err}")
+    check(all(e <= lim for e, lim in zip(errs, limits)),
+          f"kernel-path gradients disagree: {errs}")
 
 
 # kernel-name patterns of the profile's classes, first match wins
 PROFILE_CLASSES = (
+    ("cell table gradient (K5-K7)", ("cell_",)),
     ("encode backward (K1 fused)", ("encode_bwd_kernel",)),
     ("encode forward (K2)", ("encode_kernel",)),
     ("occupancy bits (K4)", ("bits",)),
@@ -662,14 +765,15 @@ SYNC_OPS = ("aten::nonzero", "aten::_local_scalar_dense")
 
 def profile_steps(torch, trainer, card, n_steps=10):
     """torch.profiler over n_steps training steps: device time by kernel
-    class, the device busy share, and the top kernels."""
+    class, the device busy share, the top kernels, and the ATen ops whose
+    own kernels take the most device time, with their input shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         trainer.train_one_step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             trainer.train_one_step()
@@ -705,6 +809,14 @@ def profile_steps(torch, trainer, card, n_steps=10):
     print("  top kernels (ms/step):")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {ms / n_steps:.4f}  {name[:110]}")
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    print("  top ATen ops by their own device time (ms/step, calls/step, "
+          "input shapes):")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"    {e.self_device_time_total / 1e3 / n_steps:.4f}  "
+              f"{e.count / n_steps:.0f}x {e.key} {str(e.input_shapes)[:90]}")
 
 
 def main() -> int:
@@ -725,7 +837,9 @@ def main() -> int:
     from quadraturefields_tpu_torch.ops import occ_bits as ob
 
     kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
-               hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL]
+               hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL,
+               hs.CELL_ROW_GRAD_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
+               hs.CELL_FACTOR_GRAD_KERNEL]
     libraries = sorted({k.library for k in kernels})
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
@@ -737,27 +851,63 @@ def main() -> int:
 
     report = {}
     compare_kernels(torch, dev, report)
+    compare_cell_kernels(torch, dev, report)
 
     t0 = time.perf_counter()
     views = FixtureViews()
     print(f"fixture views: {len(views)} x {views.HEIGHT}x{views.WIDTH} "
           f"built in {time.perf_counter() - t0:.1f} s")
     eval_launches = render_slice(torch, kernels, card, views)
-    train_launches, _ = train_slice(torch, kernels, card, views,
-                                    profile="--profile" in sys.argv[1:])
+
+    from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config
+
+    profile = "--profile" in sys.argv[1:]
+    common = dict(max_steps=300, log_every=50, ckpt_every=10**9,
+                  scene="fixture")
+    # phase 4: the trainer defaults (corner layout, 2^18 samples)
+    train_launches, _ = train_slice(
+        torch, kernels, card, views,
+        Stage1Config(root=tempfile.mkdtemp(prefix="qf_smoke_"), **common),
+        ("hashgrid_encode", "occ_bits", "segment_sum", "hashgrid_encode_bwd"),
+        (hg, "table_grad_kernel", hg.table_grad_plain),
+        profile)
+    # phase 5: run_nerfsynthetic_tpu_fast.sh's flags (--layout cell
+    # --grad_payload bf16factor --n_levels 8 --n_features 4 --num_lobes 0
+    # --num_layers 2 --log2_hashmap_size 19 --batch_size 20 --scale 1.5
+    # --reg_type occ --occ_thres 0.01), 300 of its 20,000 steps
+    cell_cfg = Stage1Config(
+        root=tempfile.mkdtemp(prefix="qf_smoke_"), layout="cell",
+        grad_payload="bf16factor", n_levels=8, n_features=4, num_lobes=0,
+        num_layers=2, log2_hashmap_size=19, batch_size_log2=20, scale=1.5,
+        reg_type="occ", occ_thres=0.01, **common)
+    print(f"cell model: {cell_cfg.ngp_config()}, "
+          f"{cell_cfg.ngp_config().hashgrid.total_entries} rows")
+    cell_launches, n_steps = train_slice(
+        torch, kernels, card, views, cell_cfg,
+        ("occ_bits", "segment_sum", "cell_factor_grad"),
+        (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain), profile)
+    check(cell_launches["cell_factor_grad"] == n_steps,
+          f"K7 launched {cell_launches['cell_factor_grad']} times in "
+          f"{n_steps} steps")
+    check(cell_launches["cell_row_grad"] == 0
+          and cell_launches["cell_pair_grad"] == 0,
+          "the cell training path launched K5 or K6")
 
     check("jax" not in sys.modules, "the port imported jax")
     ref = sorted(k for k in sys.modules if k == "quadraturefields_tpu"
                  or k.startswith("quadraturefields_tpu."))
     check(not ref, f"the port imported the JAX package: {ref}")
 
+    paths = {"eval": eval_launches, "train": train_launches,
+             "train_cell": cell_launches}
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": train_launches[k.name],
-         "launches_by_path": {"eval": eval_launches[k.name],
-                              "train": train_launches[k.name]},
-         "path": "train" if train_launches[k.name] else "none (phase 2 only)",
+         "replaces": k.replaces,
+         "launches": sum(p[k.name] for p in paths.values()),
+         "launches_by_path": {p: n[k.name] for p, n in paths.items()},
+         "path": ", ".join(p for p, n in paths.items() if n[k.name])
+         or "none (phase 2 only)",
          **report[k.name]}
         for k in kernels
     ]}))

@@ -5,8 +5,12 @@ flags, so the reference shell scripts map 1:1:
   python -m quadraturefields_tpu_torch.cli.train_ngp --scene lego \
       --data_root data/nerf_synthetic --root runs/ --exp_name nerf \
       --batch_size 18 --max_steps 20000
-Training runs on the CUDA card; `main(argv, device="cpu")` runs it on
-the CPU. Data parallelism (--num_devices > 1) is not ported yet.
+scripts/run_nerfsynthetic_tpu_fast.sh's flags (--layout cell
+--grad_payload bf16factor --n_levels 8 --n_features 4 --num_lobes 0
+--batch_size 20 ...) train the cell layout, whose table gradient is the
+K7 kernel on the card. Training runs on the CUDA card;
+`main(argv, device="cpu")` runs it on the CPU. Data parallelism
+(--num_devices > 1) is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Instant-NGP radiance fields (SG-appearance, plain and density-only).
 
 Port of quadraturefields_tpu/models/ngp.py. Parameters are the same
-plain dict as the JAX `ngp_init` tree: {"table": [E, F],
-"mlp_base": {"layers": [...]}, "mlp_head": {"layers": [...]}}, so
-utils/convert.py carries JAX weights across unchanged. Matmuls run in
+plain dict as the JAX `ngp_init` tree: {"table": [E, F] (corner layout)
+or [E, 8F] (cell layout), "mlp_base": {"layers": [...]}, "mlp_head":
+{"layers": [...]}}, so utils/convert.py carries JAX weights across
+unchanged. The cell layout counts log2_hashmap_size in corners, as JAX
+does: its grid gets 2^(log2_T - 3) rows a hashed level, the same
+parameter budget. Matmuls run in
 the config's compute dtype with f32 results (ops/mlp.py); density and
 compositing math stays f32.
 """

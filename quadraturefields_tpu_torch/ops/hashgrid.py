@@ -1,18 +1,33 @@
 """Multiresolution hash-grid encoding (instant-NGP style), PyTorch port.
 
-Port of quadraturefields_tpu/ops/hashgrid.py, corner layout:
-`HashGridConfig` and its level math (tcnn's formula
-scale_l = N_min * growth^l - 1, res_l = ceil(scale_l) + 1, dense levels
-padded to a multiple of 8, hashed levels 2^log2_T rows), the table init,
-the dense / xor-prime-hash level indexing, cube and Kuhn-tet corner
-weights, and the encode with its gradient.
+Port of quadraturefields_tpu/ops/hashgrid.py: `HashGridConfig` and its
+level math (tcnn's formula scale_l = N_min * growth^l - 1,
+res_l = ceil(scale_l) + 1, dense levels padded to a multiple of 8,
+hashed levels 2^log2_T rows), the table init, the dense /
+xor-prime-hash level indexing, cube and Kuhn-tet weights, and the
+encode with its gradient, for both table layouts.
 
-`hashgrid_encode` is differentiable in the table and in x. For tensors
-on the card its forward launches csrc/hashgrid_encode.cu
-(`qf_hashgrid_encode`) and its table gradient the fused kernel of the
-same file (`qf_hashgrid_encode_bwd`); for CPU tensors both run their
-plain PyTorch versions, `encode_plain` and `table_grad_plain`. The cell
-layout is not ported yet.
+`hashgrid_encode` is differentiable in the table and in x.
+
+Corner layout (one table row per grid corner): for tensors on the card
+the forward launches csrc/hashgrid_encode.cu (`qf_hashgrid_encode`) and
+the table gradient the fused kernel of the same file
+(`qf_hashgrid_encode_bwd`); CPU tensors run the plain versions,
+`encode_plain` and `table_grad_plain`.
+
+Cell layout (one row of 8F floats per grid cell, all 8 corners' features
+in the row, c*F + f): the forward is plain PyTorch on both devices
+(`encode_cell_plain`, one row gather per level; JAX has no TPU kernel
+for it either). The table gradient follows JAX's `_cell_bwd` routing
+(`_cell_grad_route`) onto one of the three segment sums of
+hashgrid_sorted.py: K7 (`sorted_tet_factor_grad`), K6
+(`sorted_pair_grad`) or K5 (`sorted_row_grad`), each a CUDA kernel of
+csrc/cell_table_grad.cu on the card and its plain version on the CPU.
+The position gradient is taken by autograd through the weights. One
+known difference from JAX, on a set of measure zero: the weights clip
+the cell fraction to [0, 1], and at a tie (frac exactly 0 or 1, i.e. x
+on a grid knot) jax.grad(jnp.clip) gives 0.5 where torch.clamp gives 1,
+so d_x differs on the knots.
 """
 from __future__ import annotations
 
@@ -25,6 +40,7 @@ import numpy as np
 import torch
 
 from .._cuda import CudaKernel, check_cuda_tensor, ptr
+from . import hashgrid_sorted
 
 # tcnn spatial-hash primes (the first coordinate is unmultiplied).
 _PRIMES = (1, 2654435761, 805459861)
@@ -33,9 +49,13 @@ _PRIMES = (1, 2654435761, 805459861)
 @dataclasses.dataclass(frozen=True)
 class HashGridConfig:
     """Same fields and defaults as the JAX config, so configs carry over.
-    `grad_mode` "auto", "exact" and "sorted" all give the exact table
-    gradient (one kernel on the card); "stochastic" is not ported yet.
-    `grad_payload` matters only to the cell layout."""
+
+    Corner layout: `grad_mode` "auto", "exact" and "sorted" all give the
+    exact table gradient (one kernel on the card); "stochastic" is not
+    ported yet and raises. Cell layout: `grad_mode` and `grad_payload`
+    pick the gradient as JAX's `_cell_bwd` does (`_cell_grad_route`);
+    "auto" is "sorted" for tensors on the card unless 3 * E > n * L,
+    else "exact", and "stochastic" is "exact"."""
 
     n_levels: int = 16
     n_features: int = 2
@@ -45,7 +65,8 @@ class HashGridConfig:
     dtype: str = "float32"
     interp: str = "cube"      # "cube" (8 corners) | "tet" (Kuhn, 4)
     grad_mode: str = "auto"
-    layout: str = "corner"    # "corner" | "cell" (not ported yet)
+    layout: str = "corner"    # "corner" | "cell"
+    # cell layout only: "f32" | "bf16sim" | "bf16pair" | "bf16factor"
     grad_payload: str = "f32"
 
     @property
@@ -168,13 +189,37 @@ def _tet_ranks(frac: torch.Tensor):
     return torch.stack([rx, ry, rz], dim=1)
 
 
+def _cube_weights(frac: torch.Tensor) -> torch.Tensor:
+    """The 8 trilinear weights [N, 8] of fractions [N, 3], in the corner
+    order of _CORNERS: ((w_x) * w_y) * w_z."""
+    corners = torch.as_tensor(_CORNERS, device=frac.device)
+    w = torch.ones((frac.shape[0], 8), dtype=torch.float32,
+                   device=frac.device)
+    for axis in range(3):
+        on = corners[None, :, axis].bool()
+        f = frac[:, None, axis]
+        w = w * torch.where(on, f, 1.0 - f)
+    return w
+
+
+def _kuhn_weights(frac: torch.Tensor):
+    """The descending ranks r [N, 3] of fractions [N, 3] and the 4 Kuhn
+    simplex weights [N, 4]: 1 - f1, f1 - f2, f2 - f3, f3 for the sorted
+    fractions f1 >= f2 >= f3."""
+    r = _tet_ranks(frac)
+    zero = torch.zeros((), dtype=torch.float32, device=frac.device)
+    f1 = torch.where(r == 0, frac, zero).sum(dim=1)
+    f2 = torch.where(r == 1, frac, zero).sum(dim=1)
+    f3 = torch.where(r == 2, frac, zero).sum(dim=1)
+    return r, torch.stack([1.0 - f1, f1 - f2, f2 - f3, f3], dim=1)
+
+
 def _corner_indices_weights(x: torch.Tensor, cfg: HashGridConfig):
     """All-level corner table indices and interpolation weights.
 
     Returns (idx [N, L*C] int64, w [N, L*C] f32), C = 8 (cube) or 4
     (tet), in the JAX corner order.
     """
-    n = x.shape[0]
     x = x.to(torch.float32)
     corners = torch.as_tensor(_CORNERS, device=x.device)
     idx_all, w_all = [], []
@@ -187,20 +232,11 @@ def _corner_indices_weights(x: torch.Tensor, cfg: HashGridConfig):
         res = cfg.level_resolutions[l]
         if cfg.interp == "cube":
             c = (base[:, None, :] + corners[None]).clamp(0, res - 1)
-            w = torch.ones((n, 8), dtype=torch.float32, device=x.device)
-            for axis in range(3):
-                on = corners[None, :, axis].bool()
-                f = frac[:, None, axis]
-                w = w * torch.where(on, f, 1.0 - f)
+            w = _cube_weights(frac)
         else:
-            r = _tet_ranks(frac)
+            r, w = _kuhn_weights(frac)
             e_first = (r == 0).to(torch.int64)
             e_second = (r == 1).to(torch.int64)
-            zero = torch.zeros((), dtype=torch.float32, device=x.device)
-            f1 = torch.where(r == 0, frac, zero).sum(dim=1)
-            f2 = torch.where(r == 1, frac, zero).sum(dim=1)
-            f3 = torch.where(r == 2, frac, zero).sum(dim=1)
-            w = torch.stack([1.0 - f1, f1 - f2, f2 - f3, f3], dim=1)
             c = torch.stack(
                 [torch.zeros_like(base), e_first, e_first + e_second,
                  torch.ones_like(base)],
@@ -336,13 +372,170 @@ def table_grad_kernel(x: torch.Tensor, g: torch.Tensor,
     return d_table
 
 
+# ---- cell layout (JAX ops/hashgrid.py:286-634) ----
+
+def _cell_levels(x: torch.Tensor, cfg: HashGridConfig):
+    """Per level: (cell row index [N] int64, cell fraction [N, 3] f32
+    clipped to [0, 1]). The cell is clipped to the grid, so a point on
+    the upper face interpolates to the boundary corner."""
+    x = x.to(torch.float32)
+    for l in range(cfg.n_levels):
+        scale = torch.tensor(cfg.level_scales[l], dtype=torch.float32)
+        pos = x * scale + 0.5
+        n_axis = cfg.level_resolutions[l] - 1          # cells per axis
+        cell = torch.floor(pos).to(torch.int64).clamp(0, n_axis - 1)
+        frac = (pos - cell.to(torch.float32)).clamp(0.0, 1.0)
+        idx = _level_indices(cell, n_axis, cfg.level_sizes[l]) \
+            + cfg.level_offsets[l]
+        yield idx, frac
+
+
+def _cell_kuhn(frac: torch.Tensor):
+    """The Kuhn simplex of each cell fraction: weights wk [N, 4] in the
+    corner order (0, s1, s2, 7) and the two dynamic corner slots s1, s2
+    [N] int32 (slot id = i*4 + j*2 + k; s1 in {1, 2, 4}, s2 in
+    {3, 5, 6})."""
+    r, wk = _kuhn_weights(frac)
+    bit = torch.tensor([4, 2, 1], dtype=torch.int64, device=frac.device)
+    s1 = ((r == 0).to(torch.int64) * bit).sum(dim=1)
+    s2 = ((r <= 1).to(torch.int64) * bit).sum(dim=1)
+    return wk, s1.to(torch.int32), s2.to(torch.int32)
+
+
+def _cell_indices_weights(x: torch.Tensor, cfg: HashGridConfig):
+    """One table row per (point, level) and its 8 dense corner weights.
+
+    Returns (idx [N, L] int64, w8 [N, L*8] f32); slot c = i*4 + j*2 + k
+    holds corner (i, j, k), the order of _CORNERS. "tet" places the 4
+    Kuhn weights in their slots and zeros in the other 4.
+    """
+    idx_all, w_all = [], []
+    for idx, frac in _cell_levels(x, cfg):
+        if cfg.interp == "cube":
+            w8 = _cube_weights(frac)
+        else:
+            wk, s1, s2 = _cell_kuhn(frac)
+            slots = torch.stack([torch.zeros_like(s1), s1, s2,
+                                 torch.full_like(s1, 7)], dim=1)
+            w8 = torch.zeros((x.shape[0], 8), dtype=torch.float32,
+                             device=x.device).scatter(1, slots.long(), wk)
+        idx_all.append(idx[:, None])
+        w_all.append(w8)
+    return torch.cat(idx_all, dim=1), torch.cat(w_all, dim=1)
+
+
+def _cell_tet_levels(x: torch.Tensor, cfg: HashGridConfig):
+    """Row index [N, L] and the sparse Kuhn data of every (point,
+    level): wk [N, L, 4] and the dynamic slots s1, s2 [N, L] int32."""
+    idx, wk, s1, s2 = [], [], [], []
+    for i, frac in _cell_levels(x, cfg):
+        w, a, b = _cell_kuhn(frac)
+        idx.append(i)
+        wk.append(w)
+        s1.append(a)
+        s2.append(b)
+    return (torch.stack(idx, dim=1), torch.stack(wk, dim=1),
+            torch.stack(s1, dim=1), torch.stack(s2, dim=1))
+
+
+def _cell_tet_sparse(x: torch.Tensor, cfg: HashGridConfig):
+    """(wk [N, L, 4], s1 [N, L], s2 [N, L]), as JAX's _cell_tet_sparse."""
+    return _cell_tet_levels(x, cfg)[1:]
+
+
+def encode_cell_plain(table: torch.Tensor, x: torch.Tensor,
+                      cfg: HashGridConfig) -> torch.Tensor:
+    """The cell-layout encode: per level one gather of the [N, 8F] cell
+    rows and the weighted sum over the 8 corners. x [N, 3] -> [N, L*F]
+    f32. Plain PyTorch on every device."""
+    x = x.clamp(0.0, 1.0)
+    n, F = x.shape[0], cfg.n_features
+    idx, w8 = _cell_indices_weights(x, cfg)
+    outs = []
+    for l in range(cfg.n_levels):
+        rows = table[idx[:, l]].to(torch.float32).reshape(n, 8, F)
+        outs.append((rows * w8[:, 8 * l:8 * l + 8, None]).sum(dim=1))
+    return torch.cat(outs, dim=1)
+
+
+def _cell_grad_route(cfg: HashGridConfig, n: int, on_card: bool) -> str:
+    """Which segment sum the cell table gradient of n points takes, as
+    JAX's `_cell_bwd` routes it (ops/hashgrid.py:513-604): "factor"
+    (K7), "pair" (K6) or "rows" (K5). "auto" is "sorted" on the card
+    (JAX: on an accelerator) unless the table outweighs the stream
+    (3 * E > n * L), else "exact"; every mode but "sorted" is "exact".
+    Only "sorted" reaches the bf16 factor and pair payloads; the rest
+    (f32, bf16sim, and the F = 2 or cube bf16factor requests) sum f32
+    contribution rows, which is the same function in both modes."""
+    mode, F = cfg.grad_mode, cfg.n_features
+    if mode == "auto":
+        sweep_heavy = cfg.total_entries * 3 > n * cfg.n_levels
+        mode = "sorted" if (on_card and not sweep_heavy) else "exact"
+    if mode != "sorted":
+        return "rows"
+    if (cfg.grad_payload == "bf16factor" and cfg.interp == "tet"
+            and F >= 4 and F % 2 == 0):
+        return "factor"
+    if cfg.grad_payload == "bf16pair" and F % 2 == 0:
+        return "pair"
+    return "rows"
+
+
+def _cell_table_grad(x, g, cfg: HashGridConfig):
+    """The cell table gradient [E, 8F] f32 of clamped x [N, 3] and the
+    output's cotangent g [N, L*F] f32, on the route of
+    _cell_grad_route. Contributions are point-major (n, l)."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    E = cfg.total_entries
+    g2 = g.reshape(n * L, F)
+    route = _cell_grad_route(cfg, n, on_card=x.device.type == "cuda")
+    if route == "factor":
+        idx, wk, s1, s2 = _cell_tet_levels(x, cfg)
+        return hashgrid_sorted.sorted_tet_factor_grad(
+            idx.reshape(-1), wk.reshape(n * L, 4), s1.reshape(-1),
+            s2.reshape(-1), g2, E)
+    idx, w8 = _cell_indices_weights(x, cfg)
+    w8 = w8.reshape(n * L, 8, 1)
+    if route == "pair":
+        # lane k = c * F/2 + p carries feature 2p (lo) and 2p + 1 (hi)
+        lo = (w8 * g2[:, None, 0::2]).reshape(n * L, 4 * F)
+        hi = (w8 * g2[:, None, 1::2]).reshape(n * L, 4 * F)
+        return hashgrid_sorted.sorted_pair_grad(idx.reshape(-1), lo, hi, E)
+    contrib = (w8 * g2[:, None, :]).reshape(n * L, 8 * F)
+    if cfg.grad_payload == "bf16sim":
+        contrib = contrib.to(torch.bfloat16).to(torch.float32)
+    return hashgrid_sorted.sorted_row_grad(idx.reshape(-1), contrib, E)
+
+
+def _cell_position_grad(table, x, g, cfg: HashGridConfig):
+    """dL/dx of the cell encode (ops/hashgrid.py:613-633): dL/dw8[c] =
+    sum_f row[c*F + f] * g[f], regathered per level, pulled back through
+    the weights by autograd. Payload-independent."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        idx, w8 = _cell_indices_weights(xx.clamp(0.0, 1.0), cfg)
+        g3 = g.to(torch.float32).reshape(n, L, 1, F)
+        dl_dw = torch.cat([
+            (table.detach()[idx[:, l]].to(torch.float32).reshape(n, 8, F)
+             * g3[:, l]).sum(dim=2)
+            for l in range(L)
+        ], dim=1)
+        (d_x,) = torch.autograd.grad(w8, xx, dl_dw)
+    return d_x
+
+
 def _encode_forward(table, x, cfg: HashGridConfig):
+    if cfg.layout == "cell":
+        return encode_cell_plain(table, x, cfg)
     if x.device.type == "cpu":
         return encode_plain(table, x, cfg)
     return encode_kernel(table, x, cfg)
 
 
 def _table_grad(x, g, cfg: HashGridConfig):
+    if cfg.layout == "cell":
+        return _cell_table_grad(x, g, cfg)
     if x.device.type == "cpu":
         return table_grad_plain(x, g, cfg)
     return table_grad_kernel(x, g, cfg)
@@ -353,6 +546,8 @@ def _position_grad(table, x, g, cfg: HashGridConfig):
     dL/dw[c] = sum_f table[row_c, f] * g[f], pulled back through the
     weights' dependence on x by autograd, as JAX does with jax.vjp. x is
     the clamped input, and the weights clamp it again."""
+    if cfg.layout == "cell":
+        return _cell_position_grad(table, x, g, cfg)
     n = x.shape[0]
     L, C, F = cfg.n_levels, cfg.corners, cfg.n_features
     with torch.enable_grad():
@@ -366,8 +561,8 @@ def _position_grad(table, x, g, cfg: HashGridConfig):
 
 
 class _HashGridEncode(torch.autograd.Function):
-    """Encode with its VJP: the table gradient (the fused kernel on the
-    card) and, only when asked for, the position gradient."""
+    """Encode with its VJP: the table gradient (a kernel on the card)
+    and, only when asked for, the position gradient."""
 
     @staticmethod
     def forward(ctx, table, x, cfg):
@@ -397,14 +592,14 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,
     through the kernels, CPU tensors through the plain versions.
     Differentiable in `table` and `x`.
     """
-    if cfg.layout != "corner":
-        raise NotImplementedError("the cell layout is not ported yet")
+    if cfg.layout not in ("corner", "cell"):
+        raise ValueError(f"unknown layout: {cfg.layout!r}")
     if cfg.grad_mode not in ("auto", "exact", "sorted", "stochastic"):
         raise ValueError(f"unknown grad_mode: {cfg.grad_mode!r}")
     if not (torch.is_grad_enabled()
             and (table.requires_grad or x.requires_grad)):
         return _encode_forward(table, x, cfg)
-    if cfg.grad_mode == "stochastic":
+    if cfg.grad_mode == "stochastic" and cfg.layout == "corner":
         raise NotImplementedError(
             'grad_mode "stochastic" is not ported yet')
     return _HashGridEncode.apply(table, x, cfg)

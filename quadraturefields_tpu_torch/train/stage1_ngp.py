@@ -57,8 +57,9 @@ MIPNERF360_UNBOUNDED_SCENES = (
 class Stage1Config:
     """The JAX trainer's config, field for field, so configs carry over.
     `data_sharding`, `num_devices` (data parallelism), `save_images` and
-    grad_mode "stochastic" are not ported yet; the trainer refuses
-    them."""
+    grad_mode "stochastic" on the corner layout are not ported yet; the
+    trainer refuses them. On the cell layout "stochastic" is "exact", as
+    in JAX."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -249,7 +250,7 @@ class Stage1Trainer:
             raise NotImplementedError("data parallelism is not ported yet")
         if cfg.save_images:
             raise NotImplementedError("saving eval images is not ported yet")
-        if cfg.grad_mode == "stochastic":
+        if cfg.grad_mode == "stochastic" and cfg.layout == "corner":
             raise NotImplementedError(
                 'grad_mode "stochastic" is not ported yet')
         # full-f32 matmuls and convolutions: the bf16-operand MLP keeps

@@ -1,7 +1,8 @@
 """Carry weights and occupancy state across from the JAX package.
 
 The JAX `ngp_init` tree, fetched as numpy arrays, is
-{"table": [E, F], "mlp_base": {"layers": [{"w": [in, out]}, ...]},
+{"table": [E, F] (a cell-layout table is [E, 8F], row slot c*F + f in
+both packages), "mlp_base": {"layers": [{"w": [in, out]}, ...]},
 "mlp_head": {"layers": [{"w": [in, out], "b": [out]}, ...]}}. The port
 uses the same tree with torch tensors and keeps every `w` as
 [in, out] (y = x @ w), so nothing is transposed.

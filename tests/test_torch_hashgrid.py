@@ -6,6 +6,8 @@ counterpart. On the CPU the port runs the encode kernel's plain
 PyTorch version; the kernel itself is held against that on the card
 (tests/test_torch_kernels.py, chip_smoke.py).
 """
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -129,8 +131,19 @@ def test_encode_batched_matches_unbatched():
     assert torch.equal(full, chunked)
 
 
-def test_cell_layout_is_refused():
-    cfg = thg.HashGridConfig(n_levels=2, log2_hashmap_size=10, layout="cell")
-    with pytest.raises(NotImplementedError):
-        thg.hashgrid_encode(torch.zeros((cfg.total_entries, 16)),
-                            torch.zeros((4, 3)), cfg)
+def test_cell_layout_encodes_in_chunks():
+    """The cell layout (tests/test_torch_hashgrid_cell.py holds it
+    against JAX): an [E, 8F] table, chunking changes nothing; an unknown
+    layout raises."""
+    cfg = thg.HashGridConfig(n_levels=2, log2_hashmap_size=10, layout="cell",
+                             interp="tet")
+    g = torch.Generator().manual_seed(1)
+    table = thg.hashgrid_init(g, cfg)
+    assert table.shape == (cfg.total_entries, 16)
+    x = torch.rand((1000, 3), generator=g)
+    full = thg.hashgrid_encode(table, x, cfg)
+    assert full.shape == (1000, cfg.output_dim)
+    assert torch.equal(full,
+                       thg.hashgrid_encode_batched(table, x, cfg, chunk=128))
+    with pytest.raises(ValueError):
+        thg.hashgrid_encode(table, x, dataclasses.replace(cfg, layout="x"))

@@ -3,8 +3,10 @@
 Each test builds its kernel from csrc/ (nvcc, sm_90a) and compares it
 with the plain version on the same CUDA tensors, on the edge cases that
 random main-path inputs rarely reach: the encode, its fused table
-gradient, the pair segment sum, the occupancy bits and the per-ray
-segment sum. Without a card every test skips:
+gradient, the pair segment sum, the occupancy bits, the per-ray
+segment sum and the cell layout's table gradients K5, K6 and K7 (alone
+and through the cell encode's backward). Without a card every test
+skips:
 a CUDA kernel has no CPU mode. The file imports no jax, so on a host
 without jax it runs without the repo's conftest:
 
@@ -177,3 +179,123 @@ def test_segment_sum_kernel_refuses_autograd(dev):
     (dv,) = torch.autograd.grad(out, vals, cot)
     assert hs.SEGMENT_SUM_KERNEL.launches == before + 1
     assert torch.equal(dv, cot[keys.long()])
+
+
+def _cell_stream(dev, m, n_entries, seed):
+    """Entries with heavy duplicates (a thirty-second of the stream on 37
+    rows) and 100 past the table, which the kernels and plain versions
+    drop."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, n_entries, (m,), generator=g, device=dev)
+    idx[: m // 32] = torch.randint(0, 37, (m // 32,), generator=g,
+                                   device=dev)
+    idx[m // 32:m // 32 + 100] = n_entries + 3
+    return g, idx
+
+
+def _f64(args):
+    return [a.double() if torch.is_tensor(a) and a.is_floating_point()
+            else a for a in args]
+
+
+def _check_rel(got, want):
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("rw", [8, 16, 32, 64, 128])
+def test_cell_row_grad_kernel_matches_plain(dev, rw):
+    """K5 through sorted_row_grad, int32 and int64 entries, with rows of
+    zeros among them (skipped): within 1e-5 of max |want|, want the
+    plain version's sum in float64 (the atomics add in a varying
+    order)."""
+    m, n_entries = 200001, 3000
+    g, idx = _cell_stream(dev, m, n_entries, rw)
+    vals = torch.randn((m, rw), generator=g, device=dev)
+    vals[5000:6000] = 0.0
+    want = hs.row_grad_plain(idx, vals.double(), n_entries)
+    for ix in (idx, idx.int()):
+        before = hs.CELL_ROW_GRAD_KERNEL.launches
+        got = hs.sorted_row_grad(ix, vals, n_entries)
+        _check_rel(got, want)
+        assert hs.CELL_ROW_GRAD_KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("pw", [2, 8, 16, 64])
+def test_cell_pair_grad_kernel_matches_plain(dev, pw):
+    """K6 through sorted_pair_grad: each value rounded to bf16 in the
+    kernel as in the plain version, column 2k from lo, 2k+1 from hi."""
+    m, n_entries = 150001, 2000
+    g, idx = _cell_stream(dev, m, n_entries, pw)
+    lo = torch.randn((m, pw), generator=g, device=dev)
+    hi = torch.randn((m, pw), generator=g, device=dev)
+    want = hs.pair_grad_plain(idx, lo.double(), hi.double(), n_entries)
+    for ix in (idx, idx.int()):
+        got = hs.sorted_pair_grad(ix, lo, hi, n_entries)
+        _check_rel(got, want)
+
+
+@pytest.mark.parametrize("n_features", [2, 4, 8, 16])
+def test_cell_factor_grad_kernel_matches_plain(dev, n_features):
+    """K7 through sorted_tet_factor_grad: factors and products rounded to
+    bf16 as in the plain version, at the slots (0, c1, c2, 7); slots
+    outside 0..7 add nothing; F = 2 included."""
+    m, n_entries = 150001, 2000
+    g, idx = _cell_stream(dev, m, n_entries, n_features)
+    wk = torch.rand((m, 4), generator=g, device=dev)
+    c1 = torch.randint(1, 7, (m,), generator=g, device=dev)
+    c2 = (c1 - 1 + torch.randint(1, 6, (m,), generator=g, device=dev)) % 6 + 1
+    c1[-50:] = 9
+    c2[-100:-50] = -1
+    c1, c2 = c1.int(), c2.int()
+    cot = torch.randn((m, n_features), generator=g, device=dev)
+    want = hs.tet_factor_grad_plain(idx, wk.double(), c1, c2, cot.double(),
+                                    n_entries)
+    for ix in (idx, idx.int()):
+        before = hs.CELL_FACTOR_GRAD_KERNEL.launches
+        got = hs.sorted_tet_factor_grad(ix, wk, c1, c2, cot, n_entries)
+        _check_rel(got, want)
+        assert hs.CELL_FACTOR_GRAD_KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("mode,payload,name", [
+    ("auto", "bf16factor", "tet_factor_grad_kernel"),
+    ("sorted", "bf16pair", "pair_grad_kernel"),
+    ("sorted", "f32", "row_grad_kernel"),
+    ("exact", "bf16sim", "row_grad_kernel"),
+])
+def test_cell_encode_backward_launches_its_kernel(dev, mode, payload, name,
+                                                  monkeypatch):
+    """The cell encode's table gradient on the card takes JAX's route
+    (`auto` is sorted here: 3 * E < n * L) and launches exactly that one
+    kernel, whose output lies within 1e-5 of max |want| of the plain
+    version summed in float64 on the inputs it was given."""
+    cfg = hg.HashGridConfig.from_max_resolution(
+        512, n_levels=2, n_features=4, log2_hashmap_size=12, interp="tet",
+        layout="cell", grad_mode=mode, grad_payload=payload)
+    n = 20000
+    assert cfg.total_entries * 3 < n * cfg.n_levels
+    g = torch.Generator(device=dev).manual_seed(4)
+    table = (torch.rand((cfg.total_entries, 32), generator=g, device=dev)
+             * 2 - 1).requires_grad_(True)
+    x = torch.rand((n, 3), generator=g, device=dev)
+    cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+    calls = []
+    real = getattr(hs, name)
+    monkeypatch.setattr(hs, name, lambda *a: calls.append(a) or real(*a))
+    kernels = (hs.CELL_ROW_GRAD_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
+               hs.CELL_FACTOR_GRAD_KERNEL)
+    before = [k.launches for k in kernels]
+    (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
+                                 cot)
+    assert len(calls) == 1
+    plain = {"tet_factor_grad_kernel": hs.tet_factor_grad_plain,
+             "pair_grad_kernel": hs.pair_grad_plain,
+             "row_grad_kernel": hs.row_grad_plain}[name]
+    _check_rel(got, plain(*_f64(calls[0])))
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert launched == [int(name == "row_grad_kernel"),
+                        int(name == "pair_grad_kernel"),
+                        int(name == "tet_factor_grad_kernel")]

@@ -96,9 +96,12 @@ class _Rays360:
         return 1
 
 
-def _trainers(scene_type, root):
+def _trainers(scene_type, root, **config):
+    """A JAX and a port trainer on the same weights, occupancy and batch;
+    `config` overrides Stage1Config fields of both."""
     kw = dict(n_levels=4, log2_hashmap_size=12, batch_size_log2=14,
-              grid_resolution=128, init_batch_size=256, scene_type=scene_type)
+              grid_resolution=128, init_batch_size=256, scene_type=scene_type,
+              **config)
     if scene_type == "synthetic":
         kw.update(scene="fixture", data_root=root)
         datasets = {}
