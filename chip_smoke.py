@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py             # all phases
     python3 chip_smoke.py --profile   # and a torch.profiler breakdown of
-                                      # the training steps of phases 4
-                                      # and 5
+                                      # one evaluate() of phase 3 and the
+                                      # training steps of phases 4 and 5
+    python3 chip_smoke.py --baseline DIR
+        # and time the encode (K2) and the cell factor gradient (K7) of
+        # another checkout at DIR (e.g. a parent commit unpacked with
+        # `git archive`) beside this one's, in turns, on the same inputs
 
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
@@ -16,7 +20,8 @@ Phases (any failure raises and exits non-zero):
      (K1) at 2^18 points, the pair segment sum at 16.8M contributions,
      K8's bf16 value-space wrapper, and the cell layout's table
      gradients K5, K6 and K7 at 8.4M contributions into the 439,472
-     rows of the run_nerfsynthetic_tpu_fast.sh grid (K7 also at F = 2);
+     rows of the run_nerfsynthetic_tpu_fast.sh grid (K7 fused from 2^20
+     points and from its stream, also at F = 2);
   3. the evaluation path: render fixture views at full model width
      (Stage1Config defaults, seeded random weights) through
      Stage1Trainer.evaluate with the one-shot renderer, count each
@@ -31,8 +36,13 @@ Phases (any failure raises and exits non-zero):
      step on the kernel path against the plain path on the card;
   5. the cell training path: the same at run_nerfsynthetic_tpu_fast.sh's
      configuration (cell layout L8 F4 tet, bf16factor table gradient,
-     mlp head, 2 head layers, a 2^20-sample budget); K7 must launch
-     once a step, K5 and K6 never.
+     mlp head, 2 head layers, a 2^20-sample budget); K7's fused entry
+     must launch once a step, its stream entry, K5 and K6 never;
+  6. K2 and K7 again, on the main paths' own inputs captured in phases
+     3-5: the positions of one eval chunk (all its slots, and its valid
+     samples alone) and of one corner training step (K2, tet as the
+     paths run it and cube on the same positions), the positions and
+     cotangent of one cell training step (K7).
 The last two lines of standard output are a JSON summary of the kernels
 and the result line {"ok": true, "device": {...}}.
 """
@@ -44,6 +54,9 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
+from functools import partial
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -71,7 +84,8 @@ def card_line() -> str:
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
     """Mean device time of fn() in ms, by CUDA events around `iters`
-    back-to-back calls after `warmup` calls."""
+    back-to-back calls after `warmup` calls, queued while the device
+    is held busy."""
     import torch
 
     for _ in range(warmup):
@@ -79,12 +93,36 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # hold the device for ~50 ms so that the host has queued the calls
+    # before the first runs: the events then see device time, not the
+    # host's launch overhead (a 0.1 ms kernel is close to it)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(new, old=None, iters=20) -> tuple:
+    """(device ms of new(), extra report fields). With `old`, the same
+    function as a baseline checkout builds it (--baseline): its output
+    must lie within 1e-5 of max of new()'s, and both are timed in turns
+    (old, new, new, old), each the mean of its two runs; the fields then
+    hold old's time as baseline_ms."""
+    if old is None:
+        return cuda_ms(new, iters), {}
+    want, got = new(), old()
+    err = float((got - want).abs().max())
+    check(err <= 1e-5 * float(want.abs().max()),
+          f"the baseline computes another function: {err}")
+    del want, got
+    o1 = cuda_ms(old, iters)
+    n1 = cuda_ms(new, iters)
+    n2 = cuda_ms(new, iters)
+    o2 = cuda_ms(old, iters)
+    return (n1 + n2) / 2, {"baseline_ms": (o1 + o2) / 2}
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -94,6 +132,141 @@ def bound(n_bytes: float, n_ops: float) -> dict:
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def rows_touched(torch, x, cfg) -> int:
+    """Distinct corner-table rows that the encode of x reads."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    idx, _ = hg._corner_indices_weights(x, cfg)
+    touched = torch.zeros(cfg.total_entries, dtype=torch.bool,
+                          device=x.device)
+    touched[idx.reshape(-1)] = True
+    return int(touched.sum())
+
+
+def encode_bound(torch, x, cfg) -> dict:
+    """K2: x and out once, each table row the corners touch once; a
+    multiply-add per corner feature."""
+    n = x.shape[0]
+    return bound(n * 12 + rows_touched(torch, x, cfg) * cfg.n_features * 4
+                 + n * cfg.output_dim * 4,
+                 2 * n * cfg.n_levels * cfg.corners * cfg.n_features)
+
+
+class BaselineKernel:
+    """One C entry point of another checkout's csrc/<library>.cu, with
+    the C interface of this checkout's kernel `like`: built by load()
+    with the package's nvcc flags into build/kernels/baseline/<tag>/,
+    launched on the current stream. It counts no launches."""
+
+    def __init__(self, csrc: Path, library: str, like, tag: str):
+        self.src = csrc / f"{library}.cu"
+        self.like = like
+        self.tag = tag
+        self._fn = None
+
+    def load(self):
+        import ctypes
+
+        from quadraturefields_tpu_torch._cuda import (
+            BUILD_DIR,
+            NVCC_FLAGS,
+            find_nvcc,
+        )
+
+        if self._fn is None:
+            out = BUILD_DIR / "baseline" / self.tag / f"lib{self.src.stem}.so"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                            str(self.src)], check=True, capture_output=True,
+                           timeout=600)
+            fn = getattr(ctypes.CDLL(str(out)), self.like.symbol)
+            fn.argtypes = self.like.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def launch(self, device, *args):
+        import ctypes
+
+        import torch
+
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = self.load()(*args, ctypes.c_void_p(stream))
+        check(code == 0, f"{self.src} failed to launch: {code}")
+
+
+class Baseline:
+    """The encode (K2) and K7's stream entry as another checkout's
+    csrc/ builds them (`--baseline DIR`), launched with the arguments of
+    this checkout's wrappers, whose C interfaces they share."""
+
+    def __init__(self, root):
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
+        from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+
+        csrc = Path(root) / "quadraturefields_tpu_torch" / "csrc"
+        check(csrc.is_dir(), f"--baseline: no csrc/ under {root}")
+        factor_lib = ("cell_factor_grad"
+                      if (csrc / "cell_factor_grad.cu").exists()
+                      else "cell_table_grad")
+        tag = Path(root).resolve().name
+        self.encode = BaselineKernel(csrc, "hashgrid_encode",
+                                     hg.ENCODE_KERNEL, tag)
+        self.factor = BaselineKernel(csrc, factor_lib,
+                                     hs.CELL_FACTOR_GRAD_KERNEL, tag)
+        self.kernels = (self.encode, self.factor)
+
+    def encode_fn(self, table, x, cfg):
+        import torch
+
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+        out = torch.empty((x.shape[0], cfg.output_dim), dtype=torch.float32,
+                          device=x.device)
+        hg._launch_levels(self.encode, x, table, out, cfg)
+        return out
+
+    def factor_fn(self, idx, wk, c1, c2, g, n_entries):
+        import torch
+
+        from quadraturefields_tpu_torch._cuda import ptr
+
+        m, F = g.shape
+        out = torch.zeros((n_entries, 8 * F), dtype=torch.float32,
+                          device=g.device)
+        self.factor.launch(g.device, ptr(idx), int(idx.dtype == torch.int64),
+                           ptr(wk), ptr(c1), ptr(c2), ptr(g), ptr(out), m, F,
+                           n_entries)
+        return out
+
+    def factor_route_fn(self, x, g, cfg):
+        """The parent's backward route of K7: the stream built with
+        _cell_tet_levels, then its stream entry."""
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+        n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+        idx, wk, s1, s2 = hg._cell_tet_levels(x, cfg)
+        return self.factor_fn(idx.reshape(-1), wk.reshape(n * L, 4),
+                              s1.reshape(-1), s2.reshape(-1),
+                              g.reshape(n * L, F), cfg.total_entries)
+
+
+@contextmanager
+def capture(mod, name, store, key):
+    """Patch mod.name so that the arguments of its first call (tensors
+    cloned) land in store[key]."""
+    real = getattr(mod, name)
+
+    def recording(*args):
+        if key not in store:
+            store[key] = tuple(a.detach().clone() if hasattr(a, "detach")
+                               else a for a in args)
+        return real(*args)
+
+    with mock.patch.object(mod, name, recording):
+        yield
 
 
 class FixtureViews:
@@ -165,10 +338,11 @@ class FixtureViews:
         }
 
 
-def compare_kernels(torch, dev, report):
+def compare_kernels(torch, dev, report, baseline=None):
     """Phase 2: each kernel against its plain version at main-path
     shapes. Fills report[name] with max_abs_err, ms, plain_ms,
-    library_ms and the bound."""
+    library_ms and the bound; with a baseline, the encode's time there
+    too (baseline_ms, timed in turns with this checkout's)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
@@ -181,14 +355,8 @@ def compare_kernels(torch, dev, report):
             4096, n_levels=16, n_features=2, log2_hashmap_size=19,
             interp=interp)
 
-    def rows_touched(x, cfg):
-        idx, _ = hg._corner_indices_weights(x, cfg)
-        touched = torch.zeros(cfg.total_entries, dtype=torch.bool,
-                              device=dev)
-        touched[idx.reshape(-1)] = True
-        return int(touched.sum())
-
-    # encode: 2^20 points, L16 F2 T2^19, table U(-1,1), err <= 1e-5
+    # encode: 2^20 points, L16 F2 T2^19, table U(-1,1); tet bit for bit
+    # (the plain version's corner order and rounding), cube <= 1e-5
     n = 1 << 20
     x = torch.rand((n, 3), generator=g, device=dev)
     for interp in ("tet", "cube"):
@@ -199,21 +367,24 @@ def compare_kernels(torch, dev, report):
         want = hg.encode_plain(table, x, cfg)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: hg.encode_kernel(table, x, cfg))
+        ms, res = timed(lambda: hg.encode_kernel(table, x, cfg),
+                        baseline and (lambda: baseline.encode_fn(table, x,
+                                                                 cfg)))
         plain_ms = cuda_ms(lambda: hg.encode_plain(table, x, cfg), iters=5)
-        # x and out once, each table row the corners touch once; a
-        # multiply-add per corner feature
-        b = bound(n * 12 + rows_touched(x, cfg) * 8 + n * cfg.output_dim * 4,
-                  2 * n * cfg.n_levels * cfg.corners * 2)
-        print(f"encode {interp}: {n} points, {cfg.total_entries} rows "
-              f"({cfg.total_entries * 8 / 1e6:.1f} MB): max_abs_err {err} "
-              f"(limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        check(err <= 1e-5, f"encode {interp} disagrees: {err}")
+        b = encode_bound(torch, x, cfg)
+        print(f"encode {interp}: {n} uniform points, {cfg.total_entries} "
+              f"rows ({cfg.total_entries * 8 / 1e6:.1f} MB): max_abs_err "
+              f"{err} (limit {0.0 if interp == 'tet' else 1e-5}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline {res}")
+        check(err == 0.0 if interp == "tet" else err <= 1e-5,
+              f"encode {interp} disagrees: {err}")
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, **b, **res)
         if interp == "tet":  # the trainer default
-            report["hashgrid_encode"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **b)
+            report["hashgrid_encode"] = entry
+        else:
+            report["hashgrid_encode"]["cube"] = entry
         del table, got, want
 
     # coarse bits: 32^3 grid, 2^21 queries (some outside the box)
@@ -328,6 +499,8 @@ def compare_kernels(torch, dev, report):
     report["table_grad_pairs"] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms, library_ms=lib_ms,
                                       **b)
+    # K1's yardstick: index_add_ of its own contribution stream
+    report["hashgrid_encode_bwd"]["library_ms"] = lib_ms
     del out, vals
 
     # K8's wrapper: the same stream as (row, lane0) of the value layout,
@@ -362,16 +535,21 @@ def as_f64(args):
             and a.is_floating_point() else a for a in args]
 
 
-def compare_cell_kernels(torch, dev, report):
-    """Phase 2, the cell table gradients: K7, K6 and K5 on contributions
-    of 2^20 uniform points through the tet cell grid of
+def compare_cell_kernels(torch, dev, report, baseline=None):
+    """Phase 2, the cell table gradients, on 2^20 uniform points x and a
+    cotangent g [N, L*F] ~ N(0, 1) through the tet cell grid of
     run_nerfsynthetic_tpu_fast.sh (L8 F4, 2^16 rows a hashed level:
-    E = 439,472 rows of 32 floats, M = 8,388,608), g ~ N(0, 1); K7 also
-    on the L16 F2 cell grid (E = 903,456, M = 16.8M), which the trainer
-    never routes there. Reference: the plain version summed in float64
-    on the same inputs, limit 1e-5 * max |want| (the atomics add in a
-    varying order). library_ms: one index_add_ of the prepared [M, 8F]
-    f32 contribution rows into [E, 8F]."""
+    E = 439,472 rows of 32 floats, M = 8,388,608 contributions): K7
+    fused from (x, g), K7's stream entry, K6 and K5 on the contribution
+    stream of the same points; K7 also on the L16 F2 cell grid
+    (E = 903,456, M = 16.8M), which the trainer never routes there.
+    Reference: the plain version summed in float64 on the same inputs,
+    limit 1e-5 * max |want| (the atomics add in a varying order).
+    library_ms: one index_add_ of the prepared [M, 8F] f32 contribution
+    rows into [E, 8F]. With a baseline, its K7 is timed in turns beside
+    this checkout's: its stream entry on the stream, and its backward
+    route (the stream built by _cell_tet_levels, then that entry) beside
+    the fused entry."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
@@ -379,27 +557,26 @@ def compare_cell_kernels(torch, dev, report):
     n = 1 << 20
     x = torch.rand((n, 3), generator=g, device=dev)
 
-    def run(label, kernel, plain, args, rows, n_bytes, n_ops):
-        idx, e = args[0], args[-1]
+    def run(label, kernel, plain, args, e, lib, n_bytes, n_ops, old=None):
         got = kernel(*args)
         want = plain(*as_f64(args))
         torch.cuda.synchronize()
+        scale = float(want.abs().max())
         err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
+        rel = err / scale
         del got, want
-        ms = cuda_ms(lambda: kernel(*args))
+        ms, res = timed(lambda: kernel(*args), old)
         plain_ms = cuda_ms(lambda: plain(*args), iters=5)
-        acc = torch.zeros((e, rows.shape[1]), device=dev)
-        lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, rows))
+        lib_ms = cuda_ms(lib)
         b = bound(n_bytes, n_ops)
-        print(f"{label}: {idx.shape[0]} contributions into {e} rows x "
-              f"{rows.shape[1]}: max_abs_err {err}, relative {rel} (limit "
-              f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"index_add_ of the [M, {rows.shape[1]}] rows {lib_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        print(f"{label}: {n * L} contributions into {e} rows: max_abs_err "
+              f"{err}, relative {rel} (limit 1e-5); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ of "
+              f"the [M, 8F] rows {lib_ms:.4f} ms, bound {b['bound_ms']:.4f} "
+              f"ms ({b['bound_by']}); baseline {res}")
         check(rel <= 1e-5, f"{label} disagrees: {rel}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, **b)
+                    library_ms=lib_ms, **b, **res)
 
     results = {}
     for L, F in ((8, 4), (16, 2)):
@@ -408,34 +585,60 @@ def compare_cell_kernels(torch, dev, report):
             interp="tet", layout="cell")
         e, m = cfg.total_entries, n * L
         check(e == {4: 439_472, 2: 903_456}[F], f"cell grid has {e} rows")
+        cot = torch.randn((n, L * F), generator=g, device=dev)
         idx, wk, s1, s2 = hg._cell_tet_levels(x, cfg)
-        cot = torch.randn((m, F), generator=g, device=dev)
-        args = (idx.reshape(-1), wk.reshape(m, 4), s1.reshape(-1),
-                s2.reshape(-1), cot, e)
+        stream = (idx.reshape(-1), wk.reshape(m, 4), s1.reshape(-1),
+                  s2.reshape(-1), cot.reshape(m, F), e)
+        del idx, wk, s1, s2
+        rows = hs.factor_rows(*stream[1:5])
+        acc = torch.zeros((e, 8 * F), device=dev)
+
+        def lib():
+            acc.index_add_(0, stream[0], rows)
+
         out_bytes = e * 8 * F * 4
-        # idx int64, wk, s1, s2 int32, g; a multiply and an add for each
-        # of the 4 x F products
-        results[F] = run(
-            f"cell factor grad (K7) L{L} F{F}", hs.tet_factor_grad_kernel,
-            hs.tet_factor_grad_plain, args, hs.factor_rows(*args[1:5]),
-            m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F)
-        del idx, wk, s1, s2, args
+        old_route = old_stream = None
+        if baseline is not None:
+            def old_route():
+                return baseline.factor_route_fn(x, cot, cfg)
+
+            def old_stream():
+                return baseline.factor_fn(*stream)
+        # fused: x, g and the output once; the stream entry: idx int64,
+        # wk, s1, s2 int32, g and the output; a multiply and an add for
+        # each of the 4 x F products
+        fused = run(f"cell factor grad (K7 fused) L{L} F{F}",
+                    hg.tet_factor_grad_x_kernel, hg.tet_factor_grad_x_plain,
+                    (x, cot, cfg), e, lib, n * 12 + m * F * 4 + out_bytes,
+                    m * 8 * F, old_route)
+        fused["stream"] = run(
+            f"cell factor grad (K7 stream entry) L{L} F{F}",
+            hs.tet_factor_grad_kernel, hs.tet_factor_grad_plain, stream,
+            e, lib, m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F,
+            old_stream)
+        results[F] = fused
+        del rows, acc, stream
         if F == 4:
             idx, w8 = hg._cell_indices_weights(x, cfg)
             idx, w8 = idx.reshape(-1), w8.reshape(m, 8, 1)
+            cot = cot.reshape(m, F)
             lo = (w8 * cot[:, None, 0::2]).reshape(m, 4 * F)
             hi = (w8 * cot[:, None, 1::2]).reshape(m, 4 * F)
+            prows = hs.pair_rows(lo, hi)
+            acc = torch.zeros((e, 8 * F), device=dev)
             report["cell_pair_grad"] = run(
                 f"cell pair grad (K6) L{L} F{F}", hs.pair_grad_kernel,
-                hs.pair_grad_plain, (idx, lo, hi, e), hs.pair_rows(lo, hi),
+                hs.pair_grad_plain, (idx, lo, hi, e), e,
+                lambda: acc.index_add_(0, idx, prows),
                 m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F)
-            del lo, hi
+            del lo, hi, prows
             vals = (w8 * cot[:, None, :]).reshape(m, 8 * F)
             report["cell_row_grad"] = run(
                 f"cell row grad (K5) L{L} F{F}", hs.row_grad_kernel,
-                hs.row_grad_plain, (idx, vals, e), vals,
+                hs.row_grad_plain, (idx, vals, e), e,
+                lambda: acc.index_add_(0, idx, vals),
                 m * (8 + 32 * F) + out_bytes, m * 8 * F)
-            del vals, w8, idx
+            del vals, w8, idx, acc
         del cot
     report["cell_factor_grad"] = dict(results[4], at_f2=results[2])
 
@@ -477,6 +680,7 @@ def plain_path():
         (hs, "row_grad_kernel", hs.row_grad_plain),
         (hs, "pair_grad_kernel", hs.pair_grad_plain),
         (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain),
+        (hg, "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain),
     ):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
@@ -494,8 +698,11 @@ def count_launches(kernels, fn):
     return result, {k.name: k.launches for k in kernels}
 
 
-def render_slice(torch, kernels, card, views):
-    """Phase 3: the stage-1 evaluation path at full width."""
+def render_slice(torch, kernels, card, views, captured, profile: bool):
+    """Phase 3: the stage-1 evaluation path at full width. The encode's
+    arguments in the eval chunk with the most valid samples land in
+    captured["eval_chunk"], their count in captured["eval_chunk_valid"]."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.train.stage1_ngp import (
         Stage1Config,
         Stage1Trainer,
@@ -527,21 +734,29 @@ def render_slice(torch, kernels, card, views):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     budget = min(1 << 20, trainer.rcfg.max_samples_total * 4)
-    samples = 0
+    samples, best = 0, (0, None)
     with torch.no_grad():
         for i in range(len(views)):
             rays = views.fetch_eval_view(i)["rays"]
             o = torch.as_tensor(rays.origins, device=trainer.device)
             d = torch.as_tensor(rays.viewdirs, device=trainer.device)
             for s in range(0, o.shape[0], cfg.eval_chunk):
-                rgb, _, _, nv = trainer._eval_render_impl(
-                    trainer.params, trainer.occ_state,
-                    o[s:s + cfg.eval_chunk], d[s:s + cfg.eval_chunk])
+                chunk = {}
+                with capture(hg, "encode_kernel", chunk, "args"):
+                    rgb, _, _, nv = trainer._eval_render_impl(
+                        trainer.params, trainer.occ_state,
+                        o[s:s + cfg.eval_chunk], d[s:s + cfg.eval_chunk])
                 nv = int(nv)
                 check(nv <= budget, f"chunk truncated: {nv} > {budget}")
                 check(bool(torch.isfinite(rgb).all()), "non-finite rgb")
                 samples += nv
+                if nv > best[0]:
+                    best = (nv, chunk["args"])
     check(samples > 0, "no valid samples")
+    # the encode's arguments in the chunk with the most valid samples,
+    # which come first (the budget's padding follows them)
+    captured["eval_chunk"], captured["eval_chunk_valid"] = best[1], best[0]
+    print(f"eval chunk captured for phase 6: {best[0]} valid samples")
     n_rays = len(views) * views.HEIGHT * views.WIDTH
     print(f"stage-1 one-shot eval, {n_rays} rays, {samples} samples: "
           f"{eval_s:.4f} s -> {n_rays / eval_s:.1f} rays/s, "
@@ -577,6 +792,10 @@ def render_slice(torch, kernels, card, views):
     # so a sample at an occupancy-cell boundary can flip in or out: one
     # sample's weight at these random-init densities is ~2e-3
     check(wdiff <= 5e-3, f"windowed view disagrees with one-shot: {wdiff}")
+    trainer.cfg.eval_renderer = "oneshot"
+    if profile:
+        profile_steps(torch, trainer.evaluate, card, n_steps=2,
+                      label="evaluate (one-shot, 4 views)")
     return launches
 
 
@@ -597,11 +816,15 @@ def step_grads(torch, trainer, batch):
 
 
 def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
-                profile: bool):
+                captured, profile: bool):
     """Phases 4 and 5: Stage1Trainer.train at `cfg` for 300 steps. Every
     kernel named in `must_launch` must launch in the run; `table_grad`
     names the table-gradient kernel whose output compare_step holds
-    against a float64 sum. Returns (launches, training steps)."""
+    against a float64 sum. The arguments of the encode (corner layout)
+    and of the fused cell table gradient in one training step land in
+    captured["train_step"] and captured["cell_step"]. Returns (launches,
+    training steps)."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Trainer
 
     views.update_num_rays(cfg.init_batch_size)
@@ -661,11 +884,15 @@ def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
                        data["pixels"], data["color_bkgd"])]
     batch.append(torch.rand((batch[0].shape[0],), generator=trainer.generator,
                             device=dev))
+    with capture(hg, "encode_kernel", captured, "train_step"), \
+            capture(hg, "tet_factor_grad_x_kernel", captured, "cell_step"):
+        step_grads(torch, trainer, batch)
     for dtype in ("float32", "bfloat16"):
         compare_step(torch, trainer, kernels, batch, dtype, table_grad)
 
     if profile:
-        profile_steps(torch, trainer, card)
+        profile_steps(torch, trainer.train_one_step, card,
+                      label=f"training step ({cfg.layout} layout)")
     return launches, len(record)
 
 
@@ -746,7 +973,7 @@ def compare_step(torch, trainer, kernels, batch, compute_dtype, table_grad):
 PROFILE_CLASSES = (
     ("cell table gradient (K5-K7)", ("cell_",)),
     ("encode backward (K1 fused)", ("encode_bwd_kernel",)),
-    ("encode forward (K2)", ("encode_kernel",)),
+    ("encode forward (K2)", ("encode_tet_kernel", "encode_cube_kernel")),
     ("occupancy bits (K4)", ("bits",)),
     ("segment sum (K3)", ("segment_sum",)),
     ("MLP GEMMs (fwd + bwd)", ("gemm", "xmma", "cutlass", "sm90", "Kernel2")),
@@ -763,20 +990,22 @@ PROFILE_CLASSES = (
 SYNC_OPS = ("aten::nonzero", "aten::_local_scalar_dense")
 
 
-def profile_steps(torch, trainer, card, n_steps=10):
-    """torch.profiler over n_steps training steps: device time by kernel
-    class, the device busy share, the top kernels, and the ATen ops whose
-    own kernels take the most device time, with their input shapes."""
+def profile_steps(torch, step, card, n_steps=10, label="step"):
+    """torch.profiler over n_steps calls of step(): device time by kernel
+    class (each hand-written kernel its own class: its in-situ time on
+    this path), the device busy share, the top kernels, and the ATen ops
+    whose own kernels take the most device time, with their input
+    shapes. Times are per call."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        trainer.train_one_step()
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            trainer.train_one_step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel, sync_ms, n_kernels = {}, {}, 0
@@ -793,30 +1022,107 @@ def profile_steps(torch, trainer, card, n_steps=10):
     total = sum(by_kernel.values())
     classes = {}
     for name, ms in by_kernel.items():
-        label = next((c for c, pats in PROFILE_CLASSES
-                      if any(p.lower() in name.lower() for p in pats)),
-                     "other")
-        classes[label] = classes.get(label, 0.0) + ms
-    print(f"profile: {n_steps} steps, {wall * 1e3 / n_steps:.3f} ms/step "
-          f"wall (profiled), device kernel time {total / n_steps:.3f} "
-          f"ms/step in {n_kernels / n_steps:.0f} kernels, busy share "
-          f"{total / 1e3 / wall:.3f} [{card}]")
-    for label, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
-        print(f"  {label}: {ms / n_steps:.3f} ms/step "
+        cls = next((c for c, pats in PROFILE_CLASSES
+                    if any(p.lower() in name.lower() for p in pats)),
+                   "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    print(f"profile of {label}: {n_steps} calls, {wall * 1e3 / n_steps:.3f} "
+          f"ms/call wall (profiled), device kernel time "
+          f"{total / n_steps:.3f} ms/call in {n_kernels / n_steps:.0f} "
+          f"kernels, busy share {total / 1e3 / wall:.3f} [{card}]")
+    for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls}: {ms / n_steps:.4f} ms/call "
               f"({100 * ms / max(total, 1e-9):.1f}%)")
-    print("  host time in ops that wait for the device (ms/step): "
+    print("  host time in ops that wait for the device (ms/call): "
           + ", ".join(f"{k} {v / n_steps:.3f}" for k, v in sync_ms.items()))
-    print("  top kernels (ms/step):")
+    print("  top kernels (ms/call):")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {ms / n_steps:.4f}  {name[:110]}")
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.key.startswith("aten::")]
-    print("  top ATen ops by their own device time (ms/step, calls/step, "
+    print("  top ATen ops by their own device time (ms/call, calls/call, "
           "input shapes):")
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / 1e3 / n_steps:.4f}  "
               f"{e.count / n_steps:.0f}x {e.key} {str(e.input_shapes)[:90]}")
+
+
+def time_captured(torch, report, captured, card, baseline=None):
+    """Phase 6: K2 and K7 on the inputs that the main paths gave them
+    (captured in phases 3-5), against their plain versions, with the
+    bound of these inputs; with a baseline, its kernels in turns beside
+    (for K7 its backward route: the stream built from x, then its stream
+    entry). K2 runs on the eval chunk's slots, on its valid samples
+    alone (the padding after them sits at one position) and on the
+    corner step's slots, each tet (as the paths run it) and cube (the
+    same table and positions). Adds report[...]["captured"]."""
+    import dataclasses
+
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    for key in ("eval_chunk", "train_step", "cell_step"):
+        check(key in captured, f"no kernel call captured in {key}")
+    table, x, cfg = captured["eval_chunk"]
+    inputs = {"eval_chunk": (table, x, cfg),
+              "eval_chunk_valid": (table,
+                                   x[:captured["eval_chunk_valid"]], cfg),
+              "train_step": captured["train_step"]}
+    enc = report["hashgrid_encode"]
+    for path, (table, x, path_cfg) in inputs.items():
+        distinct = int(torch.unique(x, dim=0).shape[0])
+        for interp, entry in (("tet", enc), ("cube", enc["cube"])):
+            cfg = dataclasses.replace(path_cfg, interp=interp)
+            got = hg.encode_kernel(table, x, cfg)
+            want = hg.encode_plain(table, x, cfg)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            del got, want
+            ms, res = timed(lambda: hg.encode_kernel(table, x, cfg),
+                            baseline and (lambda: baseline.encode_fn(
+                                table, x, cfg)))
+            plain_ms = cuda_ms(lambda: hg.encode_plain(table, x, cfg),
+                               iters=5)
+            b = encode_bound(torch, x, cfg)
+            entry.setdefault("captured", {})[path] = dict(
+                points=x.shape[0], distinct_points=distinct,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, **res)
+            print(f"encode {interp} on the {path} positions ({x.shape[0]} "
+                  f"points, {distinct} distinct): max_abs_err {err}; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline "
+                  f"{res} [{card}]")
+            check(err == 0.0 if interp == "tet" else err <= 1e-5,
+                  f"encode {interp} on the {path} positions disagrees: "
+                  f"{err}")
+
+    x, g, cfg = captured["cell_step"]
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    got = hg.tet_factor_grad_x_kernel(x, g, cfg)
+    want = hg.tet_factor_grad_x_plain(x, g.double(), cfg)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    del got, want
+    ms, res = timed(lambda: hg.tet_factor_grad_x_kernel(x, g, cfg),
+                    baseline and (lambda: baseline.factor_route_fn(x, g,
+                                                                   cfg)))
+    plain_ms = cuda_ms(lambda: hg.tet_factor_grad_x_plain(x, g, cfg), iters=5)
+    # x, g and the output once; a multiply and an add for each product of
+    # the (point, level) pairs with a nonzero cotangent
+    live = int((g.reshape(n, L, F) != 0).any(dim=2).sum())
+    b = bound(n * 12 + n * L * F * 4 + cfg.total_entries * 8 * F * 4,
+              live * 8 * F)
+    report["cell_factor_grad"]["captured"] = {"cell_step": dict(
+        points=n, live_pairs=live, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, **b, **res)}
+    print(f"cell factor grad (K7 fused) on one cell step's x and g ({n} "
+          f"points, {live} of {n * L} (point, level) pairs with a nonzero "
+          f"cotangent): max_abs_err {err}, relative {err / scale} (limit "
+          f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline {res} "
+          f"[{card}]")
+    check(err <= 1e-5 * scale, f"K7 on the cell step disagrees: {err}")
 
 
 def main() -> int:
@@ -836,41 +1142,52 @@ def main() -> int:
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
 
+    args = sys.argv[1:]
+    profile = "--profile" in args
+    baseline = (Baseline(args[args.index("--baseline") + 1])
+                if "--baseline" in args else None)
+    # the eight kernels of the JSON line (K7 is its fused entry); K7's
+    # stream entry is counted too, and must stay off the paths
     kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
                hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL,
                hs.CELL_ROW_GRAD_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
-               hs.CELL_FACTOR_GRAD_KERNEL]
-    libraries = sorted({k.library for k in kernels})
+               hg.CELL_FACTOR_GRAD_X_KERNEL]
+    counted = kernels + [hs.CELL_FACTOR_GRAD_KERNEL]
+    libraries = sorted({k.library for k in counted})
+    jobs = [partial(build, lib) for lib in libraries]
+    if baseline is not None:
+        jobs += [k.load for k in baseline.kernels]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libraries)) as pool:
-        list(pool.map(build, libraries))
-    for k in kernels:
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: job(), jobs))
+    for k in counted:
         k.load()
-    print(f"built {', '.join(libraries)} (csrc/*.cu, in parallel) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"built {', '.join(libraries)}"
+          f"{' and the baseline' if baseline else ''} (one nvcc per "
+          f"source, in parallel) in {time.perf_counter() - t0:.1f} s")
 
-    report = {}
-    compare_kernels(torch, dev, report)
-    compare_cell_kernels(torch, dev, report)
+    report, captured = {}, {}
+    compare_kernels(torch, dev, report, baseline)
+    compare_cell_kernels(torch, dev, report, baseline)
 
     t0 = time.perf_counter()
     views = FixtureViews()
     print(f"fixture views: {len(views)} x {views.HEIGHT}x{views.WIDTH} "
           f"built in {time.perf_counter() - t0:.1f} s")
-    eval_launches = render_slice(torch, kernels, card, views)
+    eval_launches = render_slice(torch, counted, card, views, captured,
+                                 profile)
 
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config
 
-    profile = "--profile" in sys.argv[1:]
     common = dict(max_steps=300, log_every=50, ckpt_every=10**9,
                   scene="fixture")
     # phase 4: the trainer defaults (corner layout, 2^18 samples)
     train_launches, _ = train_slice(
-        torch, kernels, card, views,
+        torch, counted, card, views,
         Stage1Config(root=tempfile.mkdtemp(prefix="qf_smoke_"), **common),
         ("hashgrid_encode", "occ_bits", "segment_sum", "hashgrid_encode_bwd"),
         (hg, "table_grad_kernel", hg.table_grad_plain),
-        profile)
+        captured, profile)
     # phase 5: run_nerfsynthetic_tpu_fast.sh's flags (--layout cell
     # --grad_payload bf16factor --n_levels 8 --n_features 4 --num_lobes 0
     # --num_layers 2 --log2_hashmap_size 19 --batch_size 20 --scale 1.5
@@ -883,15 +1200,19 @@ def main() -> int:
     print(f"cell model: {cell_cfg.ngp_config()}, "
           f"{cell_cfg.ngp_config().hashgrid.total_entries} rows")
     cell_launches, n_steps = train_slice(
-        torch, kernels, card, views, cell_cfg,
+        torch, counted, card, views, cell_cfg,
         ("occ_bits", "segment_sum", "cell_factor_grad"),
-        (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain), profile)
+        (hg, "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain),
+        captured, profile)
     check(cell_launches["cell_factor_grad"] == n_steps,
           f"K7 launched {cell_launches['cell_factor_grad']} times in "
           f"{n_steps} steps")
     check(cell_launches["cell_row_grad"] == 0
-          and cell_launches["cell_pair_grad"] == 0,
-          "the cell training path launched K5 or K6")
+          and cell_launches["cell_pair_grad"] == 0
+          and cell_launches["cell_factor_grad_stream"] == 0,
+          "the cell training path launched K5, K6 or K7's stream entry")
+
+    time_captured(torch, report, captured, card, baseline)
 
     check("jax" not in sys.modules, "the port imported jax")
     ref = sorted(k for k in sys.modules if k == "quadraturefields_tpu"

@@ -7,8 +7,7 @@
 // interpolation, any level count up to kMaxLevels, F in {1,2,4,8} and
 // tables indexed with 64-bit level offsets.
 //
-// One thread per (point, level), point-major so that a warp's output
-// rows are contiguous: clip x to [0,1], pos = x * scale_l + 0.5, floor
+// Per (point, level): clip x to [0,1], pos = x * scale_l + 0.5, floor
 // and frac, then the 8 cube or 4 tet corners, each clipped to
 // [0, res-1] and indexed densely (res^3 <= level size) or by the uint32
 // xor-prime hash masked to the power-of-two level size, exactly as
@@ -18,11 +17,37 @@
 // What bounds it on an H100: the corner gathers. The stage-1 table
 // (L16 F2 T2^19, 6,299,960 rows, 50.4 MB) cannot sit in shared memory
 // and about fills the 50 MB L2, so each corner row is a dependent
-// 8-byte load whose latency is that of L2 or device memory. The design
-// keeps many (point, level) threads in flight to hide that latency and
-// reads each row as one float2. Position arithmetic uses explicit
-// round-to-nearest intrinsics so that nvcc does not contract x*s+0.5
-// into an FMA: floor() must see the same pos as the plain version.
+// 8-byte load whose latency is that of L2 or device memory, and each
+// costs a 32-byte sector. The design (tet, the trainer's default):
+// - Level-major warps over a tile of consecutive points. A block takes
+//   `tile` points and all L levels; a warp works on one level of 32
+//   consecutive points. The renderer emits samples ray by ray, and on
+//   the coarse levels neighbouring samples share corner rows, which then
+//   fall into the same load instruction and the same sectors (the
+//   padded slots of a sample budget all sit at one position).
+// - Each thread takes kPairs (point, level) pairs of its warp's tasks at
+//   once, so 8 independent row loads are in flight per thread (4
+//   corners x 2 pairs; 1 pair at F = 8).
+// - The [tile, L*F] output goes through shared memory, whose point rows
+//   are padded so that the lanes' writes hit distinct banks, and leaves
+//   as coalesced vector stores; level-major lanes would otherwise store
+//   8 bytes each at a stride of L*F*4 bytes (storing so measured
+//   10-75% slower, PERF.md).
+// - The tile is sized from L*F to about 8.5 KB of shared memory (64
+//   points at L16 F2; at least 32 points, 33 KB at L = 32, F = 8), so a
+//   block never needs the opt-in above 48 KB. Larger tiles and more
+//   pairs a thread measured slower on the training step's positions:
+//   they cost occupancy and L1, which caches the coarse levels.
+// What it does not change: on uniform points every corner load is a
+// sector of its own in either layout, and the kernel runs at the
+// point-major one's L2 rate; the gain is on the renderer's inputs.
+// Cube keeps one thread per (point, level), point-major, storing its F
+// floats straight to out: with 8 loads a thread already, the level-major
+// tiles measured 18-21% slower for cube on uniform points, the valid
+// samples of an eval chunk and a training step (PERF.md).
+// Position arithmetic uses explicit round-to-nearest intrinsics so that
+// nvcc does not contract x*s+0.5 into an FMA: floor() must see the same
+// pos as the plain version.
 //
 // Backward (qf_hashgrid_encode_bwd): the table gradient, which replaces
 // the TPU kernel ops/hashgrid_sorted.py:_acc_kernel (K1, reached from
@@ -37,39 +62,11 @@
 // throughput in L2, which the coarse dense levels (4096 rows hit by
 // every point) contend for; the design spends one float2 atomic per
 // corner at F = 2 to halve their count.
-#include "common.cuh"
+#include "grid_levels.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
-
-struct Levels {
-  float scale[kMaxLevels];
-  int res[kMaxLevels];
-  int hashed[kMaxLevels];
-  unsigned int mask[kMaxLevels];
-  long long offset[kMaxLevels];
-};
-
-__device__ __forceinline__ long long corner_index(int cx, int cy, int cz,
-                                                  int res, int hashed,
-                                                  unsigned int mask) {
-  const int hi = res - 1;
-  cx = min(max(cx, 0), hi);
-  cy = min(max(cy, 0), hi);
-  cz = min(max(cz, 0), hi);
-  if (!hashed) {
-    return static_cast<long long>(cx) +
-           static_cast<long long>(cy) * res +
-           static_cast<long long>(cz) * res * res;
-  }
-  // tcnn primes (1, 2654435761, 805459861), uint32 wraparound
-  unsigned int h = static_cast<unsigned int>(cx);
-  h ^= static_cast<unsigned int>(cy) * 2654435761u;
-  h ^= static_cast<unsigned int>(cz) * 805459861u;
-  return static_cast<long long>(h & mask);
-}
 
 template <int F>
 __device__ __forceinline__ void accumulate_row(const float* __restrict__ table,
@@ -170,28 +167,128 @@ __device__ __forceinline__ Corners<kTet> level_corners(
   return c;
 }
 
-template <int F, bool kTet>
+// Floats between two points' rows of the shared output tile: L*F, plus
+// V = min(F, 4) when (L*F)/V is even, so that the V-float writes of the
+// lanes of one level land on distinct banks.
+__host__ __device__ inline int tile_stride(int n_levels, int F) {
+  const int v = F < 4 ? F : 4;
+  const int row = n_levels * F;
+  return (row / v) % 2 == 0 ? row + v : row;
+}
+
+template <int V>
+__device__ __forceinline__ void copy_vec(float* dst, const float* src) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = *reinterpret_cast<const float2*>(src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// Tet: one block per tile of `tile` points (a multiple of 32). Task t
+// of the tile is (group t / L of 32 points, level t % L); warp w takes
+// tasks w, w + kWarps, ..., kPairs of them at a time.
+template <int F, int kPairs>
 __global__ void __launch_bounds__(kThreads)
-encode_kernel(const float* __restrict__ x, const float* __restrict__ table,
-              float* __restrict__ out, long long n, int n_levels,
-              Levels lv) {
+encode_tet_kernel(const float* __restrict__ x,
+                  const float* __restrict__ table, float* __restrict__ out,
+                  long long n, int n_levels, int tile, Levels lv) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int V = F < 4 ? F : 4;
+  extern __shared__ float4 tile_smem[];
+  float* tile_out = reinterpret_cast<float*>(tile_smem);
+  const int stride = tile_stride(n_levels, F);
+  const int lane = threadIdx.x & 31;
+  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const int n_tile = static_cast<int>(min(static_cast<long long>(tile),
+                                          n - p0));
+  const int tasks = tile / 32 * n_levels;
+
+  for (int t0 = threadIdx.x >> 5; t0 < tasks; t0 += kWarps * kPairs) {
+    Corners<true> c[kPairs];
+    int level[kPairs], at[kPairs];
+    bool ok[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int t = t0 + i * kWarps;
+      const int l = t % n_levels;
+      const int pl = t / n_levels * 32 + lane;
+      ok[i] = t < tasks && pl < n_tile;
+      level[i] = l;
+      at[i] = pl * stride + l * F;
+      if (ok[i]) {
+        c[i] = level_corners<true>(x, p0 + pl, lv.scale[l], lv.res[l],
+                                   lv.hashed[l], lv.mask[l]);
+      }
+    }
+    float acc[kPairs][F];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[i][f] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      if (!ok[i]) continue;
+      const float* tab = table + lv.offset[level[i]] * F;
+#pragma unroll
+      for (int k = 0; k < Corners<true>::kCount; ++k) {
+        accumulate_row<F>(tab, c[i].row[k], c[i].w[k], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      if (!ok[i]) continue;
+      float* o = tile_out + at[i];
+      if constexpr (V == 4) {
+#pragma unroll
+        for (int f = 0; f < F; f += 4) {
+          *reinterpret_cast<float4*>(o + f) = make_float4(
+              acc[i][f], acc[i][f + 1], acc[i][f + 2], acc[i][f + 3]);
+        }
+      } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[i][0], acc[i][1]);
+      } else {
+        *o = acc[i][0];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the tile's rows are contiguous in out: vector i of the tile is
+  // out[p0 * L * F + i * V .. + V)
+  const int vecs = n_levels * F / V;
+  float* dst = out + p0 * n_levels * F;
+  for (int i = threadIdx.x; i < n_tile * vecs; i += kThreads) {
+    const int p = i / vecs;
+    copy_vec<V>(dst + static_cast<long long>(i) * V,
+                tile_out + p * stride + (i - p * vecs) * V);
+  }
+}
+
+// Cube: one thread per (point, level), point-major; out[p, l*F:(l+1)*F]
+// stored straight from the thread.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+encode_cube_kernel(const float* __restrict__ x,
+                   const float* __restrict__ table, float* __restrict__ out,
+                   long long n, int n_levels, Levels lv) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n * n_levels) return;
   const long long p = i / n_levels;
   const int l = static_cast<int>(i - p * n_levels);
-  const float* tab = table + lv.offset[l] * F;
-  const Corners<kTet> c = level_corners<kTet>(
+  const Corners<false> c = level_corners<false>(
       x, p, lv.scale[l], lv.res[l], lv.hashed[l], lv.mask[l]);
-
   float acc[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < Corners<kTet>::kCount; ++k) {
-    accumulate_row<F>(tab, c.row[k], c.w[k], acc);
+  for (int k = 0; k < Corners<false>::kCount; ++k) {
+    accumulate_row<F>(table + lv.offset[l] * F, c.row[k], c.w[k], acc);
   }
-
   float* o = out + p * n_levels * F + l * F;
   if constexpr (F == 2) {
     *reinterpret_cast<float2*>(o) = make_float2(acc[0], acc[1]);
@@ -246,18 +343,28 @@ encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// Shared-memory budget of one tile's output, in floats (8.5 KB: 64
+// points at L16 F2).
+constexpr int kTileFloats = 2176;
+
 template <int F>
 cudaError_t launch(bool tet, const float* x, const float* table, float* out,
                    long long n, int n_levels, const Levels& lv,
                    cudaStream_t stream) {
-  const unsigned int blocks = qf_blocks(n * n_levels, kThreads);
-  if (tet) {
-    encode_kernel<F, true><<<blocks, kThreads, 0, stream>>>(
-        x, table, out, n, n_levels, lv);
-  } else {
-    encode_kernel<F, false><<<blocks, kThreads, 0, stream>>>(
-        x, table, out, n, n_levels, lv);
+  if (!tet) {
+    encode_cube_kernel<F><<<qf_blocks(n * n_levels, kThreads), kThreads, 0,
+                            stream>>>(x, table, out, n, n_levels, lv);
+    return cudaGetLastError();
   }
+  // 8 row loads in flight per thread (4 at F = 8, whose 8 accumulators a
+  // pair take the registers)
+  constexpr int kPairs = F <= 4 ? 2 : 1;
+  const int stride = tile_stride(n_levels, F);
+  const int tile = max(32, min(256, kTileFloats / stride / 32 * 32));
+  const size_t smem = static_cast<size_t>(tile) * stride * sizeof(float);
+  encode_tet_kernel<F, kPairs>
+      <<<qf_blocks(n, tile), kThreads, smem, stream>>>(x, table, out, n,
+                                                       n_levels, tile, lv);
   return cudaGetLastError();
 }
 
@@ -274,21 +381,6 @@ cudaError_t launch_bwd(bool tet, const float* x, const float* g,
         x, g, d_table, n, n_levels, lv);
   }
   return cudaGetLastError();
-}
-
-bool make_levels(int n_levels, const float* scales, const int* res,
-                 const long long* sizes, const long long* offsets,
-                 Levels* lv) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return false;
-  for (int l = 0; l < n_levels; ++l) {
-    lv->scale[l] = scales[l];
-    lv->res[l] = res[l];
-    const long long r = res[l];
-    lv->hashed[l] = r * r * r > sizes[l];
-    lv->mask[l] = static_cast<unsigned int>(sizes[l] - 1);
-    lv->offset[l] = offsets[l];
-  }
-  return true;
 }
 
 }  // namespace

@@ -19,10 +19,12 @@ Cell layout (one row of 8F floats per grid cell, all 8 corners' features
 in the row, c*F + f): the forward is plain PyTorch on both devices
 (`encode_cell_plain`, one row gather per level; JAX has no TPU kernel
 for it either). The table gradient follows JAX's `_cell_bwd` routing
-(`_cell_grad_route`) onto one of the three segment sums of
-hashgrid_sorted.py: K7 (`sorted_tet_factor_grad`), K6
-(`sorted_pair_grad`) or K5 (`sorted_row_grad`), each a CUDA kernel of
-csrc/cell_table_grad.cu on the card and its plain version on the CPU.
+(`_cell_grad_route`) onto one of three segment sums: K7
+(`tet_factor_grad_x`: the fused entry of csrc/cell_factor_grad.cu,
+which computes each (point, level)'s cell row and Kuhn weights from x
+itself), K6 (`sorted_pair_grad`) or K5 (`sorted_row_grad`) of
+hashgrid_sorted.py, each a CUDA kernel on the card and its plain
+version on the CPU.
 The position gradient is taken by autograd through the weights. One
 known difference from JAX, on a set of measure zero: the weights clip
 the cell fraction to [0, 1], and at a tie (frac exactly 0 or 1, i.e. x
@@ -443,6 +445,81 @@ def _cell_tet_sparse(x: torch.Tensor, cfg: HashGridConfig):
     return _cell_tet_levels(x, cfg)[1:]
 
 
+CELL_FACTOR_GRAD_X_KERNEL = CudaKernel(
+    "cell_factor_grad",
+    "qf_cell_factor_grad_x",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong],
+    replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:301",
+    library="cell_factor_grad",
+)
+
+
+def tet_factor_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
+                            cfg: HashGridConfig) -> torch.Tensor:
+    """K7's function from positions: the cell table gradient [E, 8F] of
+    x [N, 3] in [0, 1] and the cotangent g [N, L*F] with the bf16 factor
+    payload (hashgrid_sorted.factor_rows), level by level: each level's
+    cell rows and Kuhn weights (_cell_levels, _cell_kuhn), its [N, 8F]
+    contribution rows, one index_add_. The same sums, in the same order
+    per row, as the stream route `sorted_tet_factor_grad` on
+    `_cell_tet_levels` (levels own disjoint rows). Sums in f32 (f64 for
+    f64 g, a reference sum)."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    dtype = torch.promote_types(g.dtype, torch.float32)
+    out = torch.zeros((cfg.total_entries, 8 * F), dtype=dtype,
+                      device=x.device)
+    g3 = g.reshape(n, L, F)
+    for l, (idx, frac) in enumerate(_cell_levels(x, cfg)):
+        wk, s1, s2 = _cell_kuhn(frac)
+        out.index_add_(0, idx, hashgrid_sorted.factor_rows(wk, s1, s2,
+                                                           g3[:, l]))
+    return out
+
+
+def tet_factor_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
+                             cfg: HashGridConfig) -> torch.Tensor:
+    """Launch the fused K7 (csrc/cell_factor_grad.cu) on CUDA tensors x
+    [N, 3] f32 in [0, 1] and g [N, L*F] f32, F in {2, 4, 8, 16} ->
+    [E, 8F] f32."""
+    check_cuda_tensor(x, "x", torch.float32, x.device, 2)
+    check_cuda_tensor(g, "g", torch.float32, x.device, 2)
+    n, F, E = x.shape[0], cfg.n_features, cfg.total_entries
+    if x.shape[1] != 3:
+        raise ValueError(f"x must be [N, 3], got {tuple(x.shape)}")
+    if g.shape != (n, cfg.output_dim):
+        raise ValueError(f"g is {tuple(g.shape)}, expected "
+                         f"{(n, cfg.output_dim)}")
+    if F not in (2, 4, 8, 16):
+        raise ValueError(f"F = {F} not in (2, 4, 8, 16)")
+    if E >= 2**31:
+        raise ValueError(f"{E} rows: the kernel takes < 2^31")
+    if g.data_ptr() % (8 if F == 2 else 16):
+        raise ValueError(f"g must be {8 if F == 2 else 16}-byte aligned")
+    out = torch.zeros((E, 8 * F), dtype=torch.float32, device=x.device)
+    if n:
+        scales, res, sizes, offsets = _level_arrays(cfg)
+        n_axis = res - 1
+        CELL_FACTOR_GRAD_X_KERNEL.launch(
+            x.device, ptr(x), ptr(g), ptr(out), n, cfg.n_levels, F,
+            scales.ctypes.data_as(ctypes.c_void_p),
+            n_axis.ctypes.data_as(ctypes.c_void_p),
+            sizes.ctypes.data_as(ctypes.c_void_p),
+            offsets.ctypes.data_as(ctypes.c_void_p), E)
+    return out
+
+
+def tet_factor_grad_x(x: torch.Tensor, g: torch.Tensor,
+                      cfg: HashGridConfig) -> torch.Tensor:
+    """The cell table gradient on K7's route (tet, bf16 factor payload)
+    from positions x [N, 3] in [0, 1] and the cotangent g [N, L*F] f32:
+    the fused kernel for CUDA tensors, its plain version on the CPU."""
+    if x.device.type == "cpu":
+        return tet_factor_grad_x_plain(x, g, cfg)
+    return tet_factor_grad_x_kernel(x, g, cfg)
+
+
 def encode_cell_plain(table: torch.Tensor, x: torch.Tensor,
                       cfg: HashGridConfig) -> torch.Tensor:
     """The cell-layout encode: per level one gather of the [N, 8F] cell
@@ -490,10 +567,7 @@ def _cell_table_grad(x, g, cfg: HashGridConfig):
     g2 = g.reshape(n * L, F)
     route = _cell_grad_route(cfg, n, on_card=x.device.type == "cuda")
     if route == "factor":
-        idx, wk, s1, s2 = _cell_tet_levels(x, cfg)
-        return hashgrid_sorted.sorted_tet_factor_grad(
-            idx.reshape(-1), wk.reshape(n * L, 4), s1.reshape(-1),
-            s2.reshape(-1), g2, E)
+        return tet_factor_grad_x(x, g, cfg)
     idx, w8 = _cell_indices_weights(x, cfg)
     w8 = w8.reshape(n * L, 8, 1)
     if route == "pair":

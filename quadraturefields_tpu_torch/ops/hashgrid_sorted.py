@@ -16,11 +16,14 @@ Port of quadraturefields_tpu/ops/hashgrid_sorted.py:
   [E, 8F] rows (row slot c*F + f = corner c, feature f), one function
   with three input forms: `sorted_row_grad` (K5, f32 rows [M, 8F]),
   `sorted_pair_grad` (K6, feature pairs rounded to bf16) and
-  `sorted_tet_factor_grad` (K7, Kuhn weights and cotangents rounded to
-  bf16, their products rounded to bf16). The card runs the three entry
-  points of csrc/cell_table_grad.cu, the CPU `row_grad_plain`,
+  `sorted_tet_factor_grad` (K7's stream interface, Kuhn weights and
+  cotangents rounded to bf16, their products rounded to bf16). The card
+  runs csrc/cell_table_grad.cu (K5, K6) and the stream entry of
+  csrc/cell_factor_grad.cu (K7), the CPU `row_grad_plain`,
   `pair_grad_plain` and `tet_factor_grad_plain`. JAX sorts each stream
-  by entry for the TPU's in-order grid; the port sums unsorted.
+  by entry for the TPU's in-order grid; the port sums unsorted. The
+  cell encode's own backward does not build K7's stream: it launches the
+  fused entry of the same kernel (ops/hashgrid.py `tet_factor_grad_x`).
 """
 from __future__ import annotations
 
@@ -254,13 +257,13 @@ CELL_PAIR_GRAD_KERNEL = CudaKernel(
     library="cell_table_grad",
 )
 CELL_FACTOR_GRAD_KERNEL = CudaKernel(
-    "cell_factor_grad",
+    "cell_factor_grad_stream",
     "qf_cell_factor_grad",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
      ctypes.c_int, ctypes.c_longlong],
     replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:301",
-    library="cell_table_grad",
+    library="cell_factor_grad",
 )
 
 
@@ -329,9 +332,9 @@ def tet_factor_grad_kernel(idx: torch.Tensor, wk: torch.Tensor,
                            c1: torch.Tensor, c2: torch.Tensor,
                            g: torch.Tensor,
                            total_entries: int) -> torch.Tensor:
-    """Launch K7 (csrc/cell_table_grad.cu) on idx [M] int32/int64, wk
-    [M, 4] f32, c1, c2 [M] int32 and g [M, F] f32 on the card, F in
-    {2, 4, 8, 16} -> [total_entries, 8F] f32."""
+    """Launch K7's stream entry (csrc/cell_factor_grad.cu) on idx [M]
+    int32/int64, wk [M, 4] f32, c1, c2 [M] int32 and g [M, F] f32 on the
+    card, F in {2, 4, 8, 16} -> [total_entries, 8F] f32."""
     dev = g.device
     check_cuda_tensor(g, "g", torch.float32, dev, 2)
     m, F = g.shape
@@ -342,6 +345,8 @@ def tet_factor_grad_kernel(idx: torch.Tensor, wk: torch.Tensor,
         raise ValueError(f"wk {tuple(wk.shape)}, c1 {tuple(c1.shape)}, "
                          f"c2 {tuple(c2.shape)} for {m} contributions")
     _check_stream(idx, dev, m, total_entries)
+    if total_entries >= 2**31:
+        raise ValueError(f"{total_entries} rows: the kernel takes < 2^31")
     if F not in (2, 4, 8, 16):
         raise ValueError(f"F = {F} not in (2, 4, 8, 16)")
     _check_aligned(wk, "wk", 16)

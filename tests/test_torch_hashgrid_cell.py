@@ -145,6 +145,106 @@ def test_sorted_tet_factor_grad_matches_jax_k7(m, total_entries, F,
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _knots_and_faces(tcfg, seed):
+    """Points on the grid knots of every level (pos = x * scale + 0.5
+    an integer: frac 0, where the rank ties and the clip sit) and on the
+    upper faces (x = 1 on some axes: the cell clips to n_axis - 1 and
+    frac clips from above to 1)."""
+    rng = np.random.default_rng(seed)
+    knots = [(rng.integers(1, r, (64, 3)) - 0.5) / s
+             for s, r in zip(tcfg.level_scales, tcfg.level_resolutions)]
+    faces = rng.random((96, 3))
+    faces[np.arange(96), np.arange(96) % 3] = 1.0
+    faces[::4] = 1.0
+    return np.concatenate([*knots, faces]).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_features", [2, 4, 8])
+def test_tet_factor_grad_x_plain_equals_stream_route(n_features):
+    """K7's plain version from positions, level by level, against the
+    stream route it replaces in the backward (_cell_tet_levels, then the
+    stream interface's plain version): bit for bit, on random points,
+    grid knots and upper faces, with zero cotangent rows among them."""
+    _, tcfg = _cfgs(interp="tet", n_features=n_features,
+                    grad_payload="bf16factor")
+    x = torch.tensor(np.concatenate([_points(256, 7).clip(0, 1),
+                                     _knots_and_faces(tcfg, 7)]))
+    n, L, F = x.shape[0], tcfg.n_levels, n_features
+    fracs = [frac for _, frac in thg._cell_levels(x, tcfg)]
+    assert all(bool((f == 0).any()) for f in fracs)
+    assert all(bool((f == 1).any()) for f in fracs)
+    rng = np.random.default_rng(F)
+    g = rng.normal(size=(n, L * F)).astype(np.float32)
+    g[::9] = 0.0
+    g = torch.tensor(g)
+    idx, wk, s1, s2 = thg._cell_tet_levels(x, tcfg)
+    want = ths.sorted_tet_factor_grad(
+        idx.reshape(-1), wk.reshape(n * L, 4), s1.reshape(-1),
+        s2.reshape(-1), g.reshape(n * L, F), tcfg.total_entries)
+    got = thg.tet_factor_grad_x_plain(x, g, tcfg)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(thg.tet_factor_grad_x(x, g, tcfg), want)
+
+
+def test_tet_factor_grad_x_matches_jax_cell_bwd():
+    """K7 from positions against JAX's `_cell_bwd` on its factor route
+    (grad_mode "sorted", bf16factor, tet; on the CPU JAX runs K7 through
+    _factor_grad_reference) at L4 F4, 2^10 seeded points and knots: the
+    same bf16 roundings of factors and products, f32 sums in another
+    order, so within 1e-5 of max |d_table|. Two dense levels (27 and
+    343 cells), two hashed into 2^10 rows."""
+    kw = dict(n_levels=4, n_features=4, log2_hashmap_size=10,
+              base_resolution=4, per_level_scale=2.0, layout="cell",
+              interp="tet", grad_mode="sorted", grad_payload="bf16factor")
+    jcfg, tcfg = jhg.HashGridConfig(**kw), thg.HashGridConfig(**kw)
+    rng = np.random.default_rng(10)
+    x = np.concatenate([rng.random((1 << 10, 3)).astype(np.float32),
+                        _knots_and_faces(tcfg, 10)])
+    g = rng.normal(size=(x.shape[0], jcfg.output_dim)).astype(np.float32)
+    table = np.zeros((jcfg.total_entries, 32), np.float32)
+    want, _ = jhg._cell_bwd(jcfg, (jnp.asarray(table), jnp.asarray(x)),
+                            jnp.asarray(g))
+    want = np.asarray(want)
+    got = thg.tet_factor_grad_x_plain(torch.tensor(x), torch.tensor(g),
+                                      tcfg).numpy()
+    assert got.shape == want.shape == (tcfg.total_entries, 32)
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_cell_backward_builds_no_factor_stream(monkeypatch):
+    """The cell encode's backward on K7's route goes through
+    tet_factor_grad_x and never builds the contribution stream
+    (_cell_tet_levels); its d_table equals the stream route's bit for
+    bit."""
+    _, tcfg = _cfgs(interp="tet", n_features=4, grad_mode="sorted",
+                    grad_payload="bf16factor")
+    assert thg._cell_grad_route(tcfg, 300, on_card=False) == "factor"
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.random((300, 3)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(300, tcfg.output_dim))
+                     .astype(np.float32))
+    table = torch.zeros((tcfg.total_entries, 32), requires_grad=True)
+    idx, wk, s1, s2 = thg._cell_tet_levels(x, tcfg)
+    want = ths.sorted_tet_factor_grad(
+        idx.reshape(-1), wk.reshape(-1, 4), s1.reshape(-1), s2.reshape(-1),
+        g.reshape(-1, 4), tcfg.total_entries)
+
+    def no_stream(*a):
+        raise AssertionError("the backward built K7's stream")
+
+    monkeypatch.setattr(thg, "_cell_tet_levels", no_stream)
+    calls = []
+    fused = thg.tet_factor_grad_x
+    monkeypatch.setattr(thg, "tet_factor_grad_x",
+                        lambda *a: calls.append(a) or fused(*a))
+    (got,) = torch.autograd.grad(thg.hashgrid_encode(table, x, tcfg),
+                                 table, g)
+    assert len(calls) == 1
+    assert torch.equal(got, want)
+
+
 # (grad_mode, grad_payload, interp, F, the port's route on the CPU)
 VJP_ROUTES = [
     ("exact", "f32", "tet", 2, "rows"),

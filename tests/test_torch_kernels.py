@@ -4,9 +4,9 @@ Each test builds its kernel from csrc/ (nvcc, sm_90a) and compares it
 with the plain version on the same CUDA tensors, on the edge cases that
 random main-path inputs rarely reach: the encode, its fused table
 gradient, the pair segment sum, the occupancy bits, the per-ray
-segment sum and the cell layout's table gradients K5, K6 and K7 (alone
-and through the cell encode's backward). Without a card every test
-skips:
+segment sum and the cell layout's table gradients K5, K6 and K7 (K7
+from its stream and fused from positions, alone and through the cell
+encode's backward). Without a card every test skips:
 a CUDA kernel has no CPU mode. The file imports no jax, so on a host
 without jax it runs without the repo's conftest:
 
@@ -56,6 +56,58 @@ def test_encode_kernel_matches_plain(dev, interp, n_features):
     assert hg.ENCODE_KERNEL.launches == before + 1
     want = hg.encode_plain(table, x, cfg)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _encode_tile(n_levels, n_features):
+    """Points per block of the tet encode (csrc/hashgrid_encode.cu
+    launch): ~2176 floats of padded [tile, L*F] output, a multiple of 32
+    in [32, 256]."""
+    v = min(n_features, 4)
+    row = n_levels * n_features
+    stride = row + v if (row // v) % 2 == 0 else row
+    return max(32, min(256, 2176 // stride // 32 * 32))
+
+
+def _runs(g, n, dev):
+    """n points in runs of 1-40 equal points, as samples along a ray
+    share positions on the coarse levels."""
+    distinct = torch.rand((n, 3), generator=g, device=dev)
+    lengths = torch.randint(1, 41, (n,), generator=g, device=dev)
+    return distinct.repeat_interleave(lengths, dim=0)[:n].contiguous()
+
+
+@pytest.mark.parametrize("interp", ["cube", "tet"])
+@pytest.mark.parametrize("n_features", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_levels", [1, 16, 32])
+def test_encode_kernel_ragged_tiles(dev, interp, n_features, n_levels):
+    """The encode (tet in level-major tiles, cube point-major) at ragged
+    point counts (1, 33, one tet tile + 1) on uniform points and on runs
+    of equal points: within
+    1e-5 of encode_plain, and tet bit for bit against the plain corner
+    rows and weights summed in the kernel's order (w_0 v_0 + w_1 v_1 +
+    ..., corner by corner; encode_plain's own sum over corners takes
+    another order where PyTorch vectorises it, at F = 1)."""
+    cfg = hg.HashGridConfig(n_levels=n_levels, n_features=n_features,
+                            log2_hashmap_size=12, base_resolution=4,
+                            per_level_scale=1.25, interp=interp)
+    assert cfg.level_resolutions[0] ** 3 <= cfg.level_sizes[0]
+    g = torch.Generator(device=dev).manual_seed(n_levels * n_features)
+    table = torch.rand((cfg.total_entries, n_features), generator=g,
+                       device=dev) * 2 - 1
+    for n in (1, 33, _encode_tile(n_levels, n_features) + 1):
+        for x in (torch.rand((n, 3), generator=g, device=dev),
+                  _runs(g, n, dev)):
+            got = hg.encode_kernel(table, x, cfg)
+            torch.testing.assert_close(got, hg.encode_plain(table, x, cfg),
+                                       rtol=0, atol=1e-5)
+            if interp == "tet":
+                idx, w = hg._corner_indices_weights(x, cfg)
+                rows = table[idx].reshape(n, n_levels, 4, n_features)
+                w = w.reshape(n, n_levels, 4, 1)
+                want = torch.zeros_like(rows[:, :, 0])
+                for k in range(4):
+                    want = want + rows[:, :, k] * w[:, :, k]
+                assert torch.equal(got, want.reshape(n, -1)), n
 
 
 def test_encode_kernel_checks_its_inputs(dev):
@@ -239,9 +291,10 @@ def test_cell_pair_grad_kernel_matches_plain(dev, pw):
 
 @pytest.mark.parametrize("n_features", [2, 4, 8, 16])
 def test_cell_factor_grad_kernel_matches_plain(dev, n_features):
-    """K7 through sorted_tet_factor_grad: factors and products rounded to
-    bf16 as in the plain version, at the slots (0, c1, c2, 7); slots
-    outside 0..7 add nothing; F = 2 included."""
+    """K7's stream entry through sorted_tet_factor_grad: factors and
+    products rounded to bf16 as in the plain version, at the slots (0,
+    c1, c2, 7); slots outside 0..7 add nothing; F = 2 included; heavy
+    duplicates take the warp-aggregated path."""
     m, n_entries = 150001, 2000
     g, idx = _cell_stream(dev, m, n_entries, n_features)
     wk = torch.rand((m, 4), generator=g, device=dev)
@@ -260,8 +313,87 @@ def test_cell_factor_grad_kernel_matches_plain(dev, n_features):
         assert hs.CELL_FACTOR_GRAD_KERNEL.launches == before + 1
 
 
+def _knots_faces_ties(cfg, g, dev):
+    """Points where the cell math's branches decide, a few per row: the
+    grid knots of every level (pos = x * scale + 0.5 an integer: frac 0
+    on every axis, all three ranks tied), the upper faces (x = 1 on some
+    axes: the cell clips to n_axis - 1 and frac to 1) and exact ties of
+    two or three coordinates (fx == fy, fx == fz, fy == fz, all three)
+    at every level."""
+    knots = [((torch.randint(1, r, (64, 3), generator=g, device=dev)
+               .double() - 0.5) / s).float()
+             for s, r in zip(cfg.level_scales, cfg.level_resolutions)]
+    faces = torch.rand((96, 3), generator=g, device=dev)
+    faces[torch.arange(96), torch.arange(96) % 3] = 1.0
+    faces[::4] = 1.0
+    a = torch.rand((32, 1), generator=g, device=dev)
+    b = torch.rand((32, 1), generator=g, device=dev)
+    ties = torch.cat([torch.cat([a, a, b], 1), torch.cat([a, b, a], 1),
+                      torch.cat([b, a, a], 1), torch.cat([a, a, a], 1)])
+    return torch.cat([*knots, faces, ties]).contiguous()
+
+
+@pytest.mark.parametrize("n_features", [2, 4, 8, 16])
+def test_cell_factor_grad_x_kernel_matches_plain(dev, n_features):
+    """The fused K7 from positions through tet_factor_grad_x, on uniform
+    points and on runs of equal points (warp-aggregated rows), with a
+    ragged warp and zero cotangent rows (skipped), and on a few hundred
+    knots, upper-face points and rank ties (the in-kernel cell math's
+    floor, clamp, clip and tie-break, with few contributions per row, so
+    that one wrong slot cannot hide under the limit), on one dense and
+    two hashed levels: within 1e-5 of max |want|, want the plain
+    version's sum in float64 (the atomics add in a varying order)."""
+    cfg = hg.HashGridConfig.from_max_resolution(
+        256, n_levels=3, n_features=n_features, log2_hashmap_size=12,
+        interp="tet", layout="cell", grad_mode="sorted",
+        grad_payload="bf16factor")
+    dense = [(r - 1) ** 3 <= s for r, s in zip(cfg.level_resolutions,
+                                               cfg.level_sizes)]
+    assert dense == [True, False, False]
+    g = torch.Generator(device=dev).manual_seed(n_features)
+    n = 50001
+    edges = _knots_faces_ties(cfg, g, dev)
+    fracs = [frac for _, frac in hg._cell_levels(edges, cfg)]
+    assert all(bool((f == 0).all(dim=1).any()) for f in fracs)
+    assert all(bool((f == 1).any()) for f in fracs)
+    for x in (torch.rand((n, 3), generator=g, device=dev),
+              _runs(g, n, dev), edges):
+        m = x.shape[0]
+        cot = torch.randn((m, cfg.output_dim), generator=g, device=dev)
+        cot[m // 50:m // 25] = 0.0
+        before = hg.CELL_FACTOR_GRAD_X_KERNEL.launches
+        got = hg.tet_factor_grad_x(x, cot, cfg)
+        _check_rel(got, hg.tet_factor_grad_x_plain(x, cot.double(), cfg))
+        assert hg.CELL_FACTOR_GRAD_X_KERNEL.launches == before + 1
+
+
+def test_cell_backward_runs_the_fused_factor_kernel(dev, monkeypatch):
+    """On the card the cell encode's backward on K7's route launches the
+    fused entry once and builds no contribution stream: neither
+    _cell_tet_levels nor the stream entry runs."""
+    cfg = hg.HashGridConfig.from_max_resolution(
+        512, n_levels=2, n_features=4, log2_hashmap_size=12, interp="tet",
+        layout="cell", grad_mode="sorted", grad_payload="bf16factor")
+
+    def no_stream(*a):
+        raise AssertionError("the backward built K7's stream")
+
+    monkeypatch.setattr(hg, "_cell_tet_levels", no_stream)
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.zeros((cfg.total_entries, 32), device=dev,
+                        requires_grad=True)
+    x = torch.rand((20000, 3), generator=g, device=dev)
+    cot = torch.randn((20000, cfg.output_dim), generator=g, device=dev)
+    fused, stream = hg.CELL_FACTOR_GRAD_X_KERNEL, hs.CELL_FACTOR_GRAD_KERNEL
+    before = (fused.launches, stream.launches)
+    (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
+                                 cot)
+    assert (fused.launches, stream.launches) == (before[0] + 1, before[1])
+    _check_rel(got, hg.tet_factor_grad_x_plain(x, cot.double(), cfg))
+
+
 @pytest.mark.parametrize("mode,payload,name", [
-    ("auto", "bf16factor", "tet_factor_grad_kernel"),
+    ("auto", "bf16factor", "tet_factor_grad_x_kernel"),
     ("sorted", "bf16pair", "pair_grad_kernel"),
     ("sorted", "f32", "row_grad_kernel"),
     ("exact", "bf16sim", "row_grad_kernel"),
@@ -270,8 +402,9 @@ def test_cell_encode_backward_launches_its_kernel(dev, mode, payload, name,
                                                   monkeypatch):
     """The cell encode's table gradient on the card takes JAX's route
     (`auto` is sorted here: 3 * E < n * L) and launches exactly that one
-    kernel, whose output lies within 1e-5 of max |want| of the plain
-    version summed in float64 on the inputs it was given."""
+    kernel (K7 through its fused entry), whose output lies within 1e-5
+    of max |want| of the plain version summed in float64 on the inputs
+    it was given."""
     cfg = hg.HashGridConfig.from_max_resolution(
         512, n_levels=2, n_features=4, log2_hashmap_size=12, interp="tet",
         layout="cell", grad_mode=mode, grad_payload=payload)
@@ -283,19 +416,20 @@ def test_cell_encode_backward_launches_its_kernel(dev, mode, payload, name,
     x = torch.rand((n, 3), generator=g, device=dev)
     cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
     calls = []
-    real = getattr(hs, name)
-    monkeypatch.setattr(hs, name, lambda *a: calls.append(a) or real(*a))
+    mod = hg if name == "tet_factor_grad_x_kernel" else hs
+    real = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a: calls.append(a) or real(*a))
     kernels = (hs.CELL_ROW_GRAD_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
-               hs.CELL_FACTOR_GRAD_KERNEL)
+               hg.CELL_FACTOR_GRAD_X_KERNEL)
     before = [k.launches for k in kernels]
     (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
                                  cot)
     assert len(calls) == 1
-    plain = {"tet_factor_grad_kernel": hs.tet_factor_grad_plain,
+    plain = {"tet_factor_grad_x_kernel": hg.tet_factor_grad_x_plain,
              "pair_grad_kernel": hs.pair_grad_plain,
              "row_grad_kernel": hs.row_grad_plain}[name]
     _check_rel(got, plain(*_f64(calls[0])))
     launched = [k.launches - b for k, b in zip(kernels, before)]
     assert launched == [int(name == "row_grad_kernel"),
                         int(name == "pair_grad_kernel"),
-                        int(name == "tet_factor_grad_kernel")]
+                        int(name == "tet_factor_grad_x_kernel")]
