@@ -6,8 +6,9 @@
                                       # one evaluate() of phase 3 and the
                                       # training steps of phases 4 and 5
     python3 chip_smoke.py --baseline DIR
-        # and time the encode (K2) and the cell factor gradient (K7) of
-        # another checkout at DIR (e.g. a parent commit unpacked with
+        # and time the encode (K2), the corner table gradient (K1), the
+        # cell factor gradient (K7) and the cell row gradient's route (K5)
+        # of another checkout at DIR (e.g. a parent commit unpacked with
         # `git archive`) beside this one's, in turns, on the same inputs
 
 Phases (any failure raises and exits non-zero):
@@ -20,8 +21,10 @@ Phases (any failure raises and exits non-zero):
      (K1) at 2^18 points, the pair segment sum at 16.8M contributions,
      K8's bf16 value-space wrapper, and the cell layout's table
      gradients K5, K6 and K7 at 8.4M contributions into the 439,472
-     rows of the run_nerfsynthetic_tpu_fast.sh grid (K7 fused from 2^20
-     points and from its stream, also at F = 2);
+     rows of the run_nerfsynthetic_tpu_fast.sh grid (K7 and K5 fused
+     from 2^20 points and from their streams, also at F = 2; K5 fused
+     tet and cube, f32 and bf16sim, beside the stream route it
+     replaced);
   3. the evaluation path: render fixture views at full model width
      (Stage1Config defaults, seeded random weights) through
      Stage1Trainer.evaluate with the one-shot renderer, count each
@@ -38,16 +41,21 @@ Phases (any failure raises and exits non-zero):
      configuration (cell layout L8 F4 tet, bf16factor table gradient,
      mlp head, 2 head layers, a 2^20-sample budget); K7's fused entry
      must launch once a step, its stream entry, K5 and K6 never;
-  6. K2 and K7 again, on the main paths' own inputs captured in phases
-     3-5: the positions of one eval chunk (all its slots, and its valid
-     samples alone) and of one corner training step (K2, tet as the
-     paths run it and cube on the same positions), the positions and
-     cotangent of one cell training step (K7).
+     then the same configuration with the CLI's default f32 table
+     gradient ("train_cell_f32"): K5's fused entry once a step, its
+     stream entry, K6 and K7 never;
+  6. K1, K2, K5 and K7 again, on the main paths' own inputs captured in
+     phases 3-5: the positions of one eval chunk (all its slots, and its
+     valid samples alone) and of one corner training step (K2, tet as
+     the paths run it and cube on the same positions), the positions and
+     cotangent of that corner step (K1, tet and cube) and of one step of
+     each cell path (K7, K5).
 The last two lines of standard output are a JSON summary of the kernels
 and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -157,8 +165,9 @@ def encode_bound(torch, x, cfg) -> dict:
 class BaselineKernel:
     """One C entry point of another checkout's csrc/<library>.cu, with
     the C interface of this checkout's kernel `like`: built by load()
-    with the package's nvcc flags into build/kernels/baseline/<tag>/,
-    launched on the current stream. It counts no launches."""
+    with the package's nvcc flags into build/kernels/baseline/<tag>/
+    (one library per entry point), launched on the current stream. It
+    counts no launches."""
 
     def __init__(self, csrc: Path, library: str, like, tag: str):
         self.src = csrc / f"{library}.cu"
@@ -176,7 +185,8 @@ class BaselineKernel:
         )
 
         if self._fn is None:
-            out = BUILD_DIR / "baseline" / self.tag / f"lib{self.src.stem}.so"
+            out = (BUILD_DIR / "baseline" / self.tag
+                   / f"lib{self.src.stem}-{self.like.symbol}.so")
             out.parent.mkdir(parents=True, exist_ok=True)
             subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out),
                             str(self.src)], check=True, capture_output=True,
@@ -197,10 +207,28 @@ class BaselineKernel:
         check(code == 0, f"{self.src} failed to launch: {code}")
 
 
+def rows_route(x, g, cfg, stream_kernel):
+    """K5's route before its fused entry: the [N*L, 8F] contribution
+    rows built with _cell_indices_weights (rounded to bf16 for
+    bf16sim), then a stream entry stream_kernel(idx, vals, E)."""
+    import torch
+
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    idx, w8 = hg._cell_indices_weights(x, cfg)
+    vals = (w8.reshape(n * L, 8, 1)
+            * g.reshape(n * L, F)[:, None, :]).reshape(n * L, 8 * F)
+    if cfg.grad_payload == "bf16sim":
+        vals = vals.to(torch.bfloat16).to(torch.float32)
+    return stream_kernel(idx.reshape(-1), vals, cfg.total_entries)
+
+
 class Baseline:
-    """The encode (K2) and K7's stream entry as another checkout's
-    csrc/ builds them (`--baseline DIR`), launched with the arguments of
-    this checkout's wrappers, whose C interfaces they share."""
+    """K2, K1, K7 (both entries) and K5's stream entry as another
+    checkout's csrc/ builds them (`--baseline DIR`), launched with the
+    arguments of this checkout's wrappers, whose C interfaces they
+    share."""
 
     def __init__(self, root):
         from quadraturefields_tpu_torch.ops import hashgrid as hg
@@ -208,15 +236,19 @@ class Baseline:
 
         csrc = Path(root) / "quadraturefields_tpu_torch" / "csrc"
         check(csrc.is_dir(), f"--baseline: no csrc/ under {root}")
-        factor_lib = ("cell_factor_grad"
-                      if (csrc / "cell_factor_grad.cu").exists()
-                      else "cell_table_grad")
         tag = Path(root).resolve().name
         self.encode = BaselineKernel(csrc, "hashgrid_encode",
                                      hg.ENCODE_KERNEL, tag)
-        self.factor = BaselineKernel(csrc, factor_lib,
+        self.encode_bwd = BaselineKernel(csrc, "hashgrid_encode",
+                                         hg.ENCODE_BWD_KERNEL, tag)
+        self.factor_x = BaselineKernel(csrc, "cell_factor_grad",
+                                       hg.CELL_FACTOR_GRAD_X_KERNEL, tag)
+        self.factor = BaselineKernel(csrc, "cell_factor_grad",
                                      hs.CELL_FACTOR_GRAD_KERNEL, tag)
-        self.kernels = (self.encode, self.factor)
+        self.rows = BaselineKernel(csrc, "cell_table_grad",
+                                   hs.CELL_ROW_GRAD_KERNEL, tag)
+        self.kernels = (self.encode, self.encode_bwd, self.factor_x,
+                        self.factor, self.rows)
 
     def encode_fn(self, table, x, cfg):
         import torch
@@ -227,6 +259,21 @@ class Baseline:
                           device=x.device)
         hg._launch_levels(self.encode, x, table, out, cfg)
         return out
+
+    def table_grad_fn(self, x, g, cfg):
+        import torch
+
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+        d_table = torch.zeros((cfg.total_entries, cfg.n_features),
+                              dtype=torch.float32, device=x.device)
+        hg._launch_levels(self.encode_bwd, x, g, d_table, cfg)
+        return d_table
+
+    def factor_x_fn(self, x, g, cfg):
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+        return hg.launch_cell_grad_x(self.factor_x, x, g, cfg)
 
     def factor_fn(self, idx, wk, c1, c2, g, n_entries):
         import torch
@@ -241,16 +288,22 @@ class Baseline:
                            n_entries)
         return out
 
-    def factor_route_fn(self, x, g, cfg):
-        """The parent's backward route of K7: the stream built with
-        _cell_tet_levels, then its stream entry."""
-        from quadraturefields_tpu_torch.ops import hashgrid as hg
+    def rows_fn(self, idx, vals, n_entries):
+        import torch
 
-        n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
-        idx, wk, s1, s2 = hg._cell_tet_levels(x, cfg)
-        return self.factor_fn(idx.reshape(-1), wk.reshape(n * L, 4),
-                              s1.reshape(-1), s2.reshape(-1),
-                              g.reshape(n * L, F), cfg.total_entries)
+        from quadraturefields_tpu_torch._cuda import ptr
+
+        m, rw = vals.shape
+        out = torch.zeros((n_entries, rw), dtype=torch.float32,
+                          device=vals.device)
+        self.rows.launch(vals.device, ptr(idx), int(idx.dtype == torch.int64),
+                         ptr(vals), ptr(out), m, rw, n_entries)
+        return out
+
+    def rows_route_fn(self, x, g, cfg):
+        """The parent's backward route of K5: the stream built by
+        _cell_indices_weights, then its stream entry."""
+        return rows_route(x, g, cfg, self.rows_fn)
 
 
 @contextmanager
@@ -450,7 +503,9 @@ def compare_kernels(torch, dev, report, baseline=None):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        ms = cuda_ms(lambda: hg.table_grad_kernel(x, cot, cfg))
+        ms, res = timed(lambda: hg.table_grad_kernel(x, cot, cfg),
+                        baseline and (lambda: baseline.table_grad_fn(
+                            x, cot, cfg)))
         plain_ms = cuda_ms(lambda: hg.table_grad_plain(x, cot, cfg), iters=5)
         b = bound(n * 12 + n * cfg.output_dim * 4 + cfg.total_entries * 8,
                   2 * n * cfg.n_levels * cfg.corners * 2)
@@ -458,13 +513,16 @@ def compare_kernels(torch, dev, report, baseline=None):
               f"{n * cfg.n_levels * cfg.corners} contributions into "
               f"{cfg.total_entries} rows: max_abs_err {err}, relative {rel} "
               f"(limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); baseline "
+              f"{res}")
         check(rel <= 1e-5, f"table grad {interp} disagrees: {rel}")
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, **b, **res)
         if interp == "tet":
-            report["hashgrid_encode_bwd"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **b)
+            report["hashgrid_encode_bwd"] = entry
             contrib = (x, cot, cfg)
+        else:
+            report["hashgrid_encode_bwd"]["cube"] = entry
         del got, want
 
     def pairs_f64(i, a, b, entries):
@@ -537,19 +595,20 @@ def as_f64(args):
 
 def compare_cell_kernels(torch, dev, report, baseline=None):
     """Phase 2, the cell table gradients, on 2^20 uniform points x and a
-    cotangent g [N, L*F] ~ N(0, 1) through the tet cell grid of
+    cotangent g [N, L*F] ~ N(0, 1) through the cell grid of
     run_nerfsynthetic_tpu_fast.sh (L8 F4, 2^16 rows a hashed level:
-    E = 439,472 rows of 32 floats, M = 8,388,608 contributions): K7
-    fused from (x, g), K7's stream entry, K6 and K5 on the contribution
-    stream of the same points; K7 also on the L16 F2 cell grid
-    (E = 903,456, M = 16.8M), which the trainer never routes there.
-    Reference: the plain version summed in float64 on the same inputs,
-    limit 1e-5 * max |want| (the atomics add in a varying order).
-    library_ms: one index_add_ of the prepared [M, 8F] f32 contribution
-    rows into [E, 8F]. With a baseline, its K7 is timed in turns beside
-    this checkout's: its stream entry on the stream, and its backward
-    route (the stream built by _cell_tet_levels, then that entry) beside
-    the fused entry."""
+    E = 439,472 rows of 32 floats, M = 8,388,608 (point, level) pairs):
+    K7 fused from (x, g) and from its stream; K5 fused from (x, g), tet
+    and cube with f32 products and tet with bf16sim, beside the route it
+    replaced (the [M, 8F] rows built by _cell_indices_weights, then K5's
+    stream entry), and K5's stream entry alone; K6 on the pair stream of
+    the same points; K7 and K5 (tet f32) also on the L16 F2 cell grid
+    (E = 903,456, M = 16.8M). Reference: the plain version summed in
+    float64 on the same inputs, limit 1e-5 * max |want| (the atomics add
+    in a varying order). library_ms: one index_add_ of the prepared
+    [M, 8F] f32 contribution rows into [E, 8F]. With a baseline, its
+    kernels are timed in turns beside this checkout's: K7's two entries
+    on the same inputs, and its K5 route beside the fused K5."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
@@ -578,11 +637,11 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, **b, **res)
 
-    results = {}
+    results, rows_x = {}, {}
     for L, F in ((8, 4), (16, 2)):
         cfg = hg.HashGridConfig.from_max_resolution(
             4096, n_levels=L, n_features=F, log2_hashmap_size=16,
-            interp="tet", layout="cell")
+            interp="tet", layout="cell", grad_payload="bf16factor")
         e, m = cfg.total_entries, n * L
         check(e == {4: 439_472, 2: 903_456}[F], f"cell grid has {e} rows")
         cot = torch.randn((n, L * F), generator=g, device=dev)
@@ -597,10 +656,10 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             acc.index_add_(0, stream[0], rows)
 
         out_bytes = e * 8 * F * 4
-        old_route = old_stream = None
+        old_fused = old_stream = None
         if baseline is not None:
-            def old_route():
-                return baseline.factor_route_fn(x, cot, cfg)
+            def old_fused():
+                return baseline.factor_x_fn(x, cot, cfg)
 
             def old_stream():
                 return baseline.factor_fn(*stream)
@@ -610,7 +669,7 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
         fused = run(f"cell factor grad (K7 fused) L{L} F{F}",
                     hg.tet_factor_grad_x_kernel, hg.tet_factor_grad_x_plain,
                     (x, cot, cfg), e, lib, n * 12 + m * F * 4 + out_bytes,
-                    m * 8 * F, old_route)
+                    m * 8 * F, old_fused)
         fused["stream"] = run(
             f"cell factor grad (K7 stream entry) L{L} F{F}",
             hs.tet_factor_grad_kernel, hs.tet_factor_grad_plain, stream,
@@ -618,6 +677,42 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             old_stream)
         results[F] = fused
         del rows, acc, stream
+
+        # K5 fused: the f32 rows route's interpolations and payloads
+        variants = (("tet", "f32"), ("cube", "f32"), ("tet", "bf16sim"))
+        for interp, payload in variants[:3 if F == 4 else 1]:
+            rcfg = dataclasses.replace(cfg, interp=interp,
+                                       grad_payload=payload)
+            corners = 4 if interp == "tet" else 8
+            ridx, w8 = hg._cell_indices_weights(x, rcfg)
+            ridx = ridx.reshape(-1)
+            vals = (w8.reshape(m, 8, 1)
+                    * cot.reshape(m, F)[:, None, :]).reshape(m, 8 * F)
+            del w8
+            if payload == "bf16sim":
+                vals = vals.to(torch.bfloat16).to(torch.float32)
+            acc = torch.zeros((e, 8 * F), device=dev)
+            label = f"cell row grad (K5 fused) {interp} {payload} L{L} F{F}"
+            entry = run(
+                label, hg.cell_row_grad_x_kernel, hg.cell_row_grad_x_plain,
+                (x, cot, rcfg), e, lambda: acc.index_add_(0, ridx, vals),
+                n * 12 + m * F * 4 + out_bytes, m * 2 * corners * F,
+                baseline and (lambda: baseline.rows_route_fn(x, cot, rcfg)))
+            # the route it replaced, with this checkout's stream entry
+            entry["route_ms"] = cuda_ms(
+                lambda: rows_route(x, cot, rcfg, hs.row_grad_kernel), iters=5)
+            print(f"{label}: the route it replaced (_cell_indices_weights, "
+                  f"the [M, 8F] rows, K5's stream entry) "
+                  f"{entry['route_ms']:.4f} ms")
+            if (interp, payload) == ("tet", "f32") and F == 4:
+                # K5's stream entry alone, on the same rows
+                entry["stream"] = run(
+                    f"cell row grad (K5 stream entry) L{L} F{F}",
+                    hs.row_grad_kernel, hs.row_grad_plain, (ridx, vals, e),
+                    e, lambda: acc.index_add_(0, ridx, vals),
+                    m * (8 + 32 * F) + out_bytes, m * 8 * F)
+            rows_x[(interp, payload, F)] = entry
+            del ridx, vals, acc
         if F == 4:
             idx, w8 = hg._cell_indices_weights(x, cfg)
             idx, w8 = idx.reshape(-1), w8.reshape(m, 8, 1)
@@ -631,16 +726,12 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
                 hs.pair_grad_plain, (idx, lo, hi, e), e,
                 lambda: acc.index_add_(0, idx, prows),
                 m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F)
-            del lo, hi, prows
-            vals = (w8 * cot[:, None, :]).reshape(m, 8 * F)
-            report["cell_row_grad"] = run(
-                f"cell row grad (K5) L{L} F{F}", hs.row_grad_kernel,
-                hs.row_grad_plain, (idx, vals, e), e,
-                lambda: acc.index_add_(0, idx, vals),
-                m * (8 + 32 * F) + out_bytes, m * 8 * F)
-            del vals, w8, idx, acc
+            del lo, hi, prows, w8, idx, acc
         del cot
     report["cell_factor_grad"] = dict(results[4], at_f2=results[2])
+    report["cell_row_grad_x"] = dict(
+        rows_x[("tet", "f32", 4)], cube=rows_x[("cube", "f32", 4)],
+        bf16sim=rows_x[("tet", "bf16sim", 4)], at_f2=rows_x[("tet", "f32", 2)])
 
 
 def fixture_occupancy(trainer):
@@ -681,6 +772,7 @@ def plain_path():
         (hs, "pair_grad_kernel", hs.pair_grad_plain),
         (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain),
         (hg, "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain),
+        (hg, "cell_row_grad_x_kernel", hg.cell_row_grad_x_plain),
     ):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
@@ -815,15 +907,16 @@ def step_grads(torch, trainer, batch):
     return float(loss.detach()), grads
 
 
-def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
-                captured, profile: bool):
-    """Phases 4 and 5: Stage1Trainer.train at `cfg` for 300 steps. Every
-    kernel named in `must_launch` must launch in the run; `table_grad`
-    names the table-gradient kernel whose output compare_step holds
-    against a float64 sum. The arguments of the encode (corner layout)
-    and of the fused cell table gradient in one training step land in
-    captured["train_step"] and captured["cell_step"]. Returns (launches,
-    training steps)."""
+def train_slice(torch, kernels, card, views, name, cfg, must_launch,
+                table_grad, captured, profile: bool):
+    """Phases 4 and 5: Stage1Trainer.train at `cfg` for 300 steps (the
+    path `name`). Every kernel named in `must_launch` must launch in the
+    run; `table_grad` names the table-gradient kernel whose output
+    compare_step holds against a float64 sum. The arguments of the
+    encode and of its table gradient (corner layout) and of the fused
+    cell table gradients (K7, K5) in one training step land in
+    captured["train_step"], ["corner_grad_step"], ["cell_step"] and
+    ["cell_f32_step"]. Returns (launches, training steps)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Trainer
 
@@ -848,7 +941,7 @@ def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
     train_s = time.perf_counter() - t0
     losses = [r[3] for r in record]
     occ_frac = float(trainer.occ_state.binaries.float().mean())
-    print(f"train: {len(record)} steps + final evaluate in {train_s:.2f} s; "
+    print(f"{name}: {len(record)} steps + final evaluate in {train_s:.2f} s; "
           f"eval {metrics}; occupied cells {occ_frac:.4f}; kernel "
           f"launches {launches}")
     for name in must_launch:
@@ -868,7 +961,8 @@ def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
     samples = sum(r[2] for r in record[151:301])
     steady_s = t_b - t_a
     ms_step = steady_s / 150 * 1e3
-    print(f"stage-1 training ({cfg.layout} layout), steps 150-300: "
+    print(f"stage-1 training ({name}: {cfg.layout} layout, "
+          f"{cfg.grad_payload} table gradient), steps 150-300: "
           f"{ms_step:.3f} ms/step, "
           f"{rays / steady_s:.1f} rays/s, {samples / steady_s:.1f} "
           f"samples/s (valid samples, at most {budget} a step); batch now "
@@ -885,14 +979,16 @@ def train_slice(torch, kernels, card, views, cfg, must_launch, table_grad,
     batch.append(torch.rand((batch[0].shape[0],), generator=trainer.generator,
                             device=dev))
     with capture(hg, "encode_kernel", captured, "train_step"), \
-            capture(hg, "tet_factor_grad_x_kernel", captured, "cell_step"):
+            capture(hg, "table_grad_kernel", captured, "corner_grad_step"), \
+            capture(hg, "tet_factor_grad_x_kernel", captured, "cell_step"), \
+            capture(hg, "cell_row_grad_x_kernel", captured, "cell_f32_step"):
         step_grads(torch, trainer, batch)
     for dtype in ("float32", "bfloat16"):
         compare_step(torch, trainer, kernels, batch, dtype, table_grad)
 
     if profile:
         profile_steps(torch, trainer.train_one_step, card,
-                      label=f"training step ({cfg.layout} layout)")
+                      label=f"training step ({name})")
     return launches, len(record)
 
 
@@ -913,8 +1009,6 @@ def compare_step(torch, trainer, kernels, batch, compute_dtype, table_grad):
     rounding flips. A cell table gradient with a bf16 payload rounds
     every contribution to bf16, so its leaf takes the bf16 rule (with
     its own spread) in float32 too."""
-    import dataclasses
-
     mod, name, plain = table_grad
     saved = trainer.ngp_cfg
     trainer.ngp_cfg = dataclasses.replace(saved, compute_dtype=compute_dtype)
@@ -1049,19 +1143,21 @@ def profile_steps(torch, step, card, n_steps=10, label="step"):
 
 
 def time_captured(torch, report, captured, card, baseline=None):
-    """Phase 6: K2 and K7 on the inputs that the main paths gave them
-    (captured in phases 3-5), against their plain versions, with the
-    bound of these inputs; with a baseline, its kernels in turns beside
-    (for K7 its backward route: the stream built from x, then its stream
-    entry). K2 runs on the eval chunk's slots, on its valid samples
-    alone (the padding after them sits at one position) and on the
-    corner step's slots, each tet (as the paths run it) and cube (the
-    same table and positions). Adds report[...]["captured"]."""
-    import dataclasses
-
+    """Phase 6: K2, K1, K7 and K5 on the inputs that the main paths gave
+    them (captured in phases 3-5), against their plain versions, with
+    the bound of these inputs; with a baseline, its kernels in turns
+    beside (for K5 its backward route: the stream built from x, then its
+    stream entry). K2 runs on the eval chunk's slots, on its valid
+    samples alone (the padding after them sits at one position) and on
+    the corner step's slots, each tet (as the paths run it) and cube (the
+    same table and positions); K1 on the corner step's positions and
+    cotangent, tet and cube; K7 and K5 on one step of their cell paths.
+    Adds report[...]["captured"]."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
-    for key in ("eval_chunk", "train_step", "cell_step"):
+    for key in ("eval_chunk", "train_step", "corner_grad_step", "cell_step",
+                "cell_f32_step"):
         check(key in captured, f"no kernel call captured in {key}")
     table, x, cfg = captured["eval_chunk"]
     inputs = {"eval_chunk": (table, x, cfg),
@@ -1096,33 +1192,62 @@ def time_captured(torch, report, captured, card, baseline=None):
                   f"encode {interp} on the {path} positions disagrees: "
                   f"{err}")
 
+    def table_grad(label, kernel, plain, x, g, cfg, out_bytes, corners,
+                   old=None):
+        """A table gradient on captured (x, g): error against the plain
+        sum in float64, times, and the bound: x, g and the output once; a
+        multiply and an add for each product of the (point, level) pairs
+        with a nonzero cotangent. `old` (x, g, cfg): the baseline's."""
+        n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+        got = kernel(x, g, cfg)
+        want = plain(x, g.double(), cfg)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        del got, want
+        ms, res = timed(lambda: kernel(x, g, cfg),
+                        old and (lambda: old(x, g, cfg)))
+        plain_ms = cuda_ms(lambda: plain(x, g, cfg), iters=5)
+        live = int((g.reshape(n, L, F) != 0).any(dim=2).sum())
+        b = bound(n * 12 + n * L * F * 4 + out_bytes,
+                  live * 2 * corners * F)
+        print(f"{label} ({n} points, {live} of {n * L} (point, level) "
+              f"pairs with a nonzero cotangent): max_abs_err {err}, "
+              f"relative {err / scale} (limit 1e-5); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); baseline {res} [{card}]")
+        check(err <= 1e-5 * scale, f"{label} disagrees: {err}")
+        return dict(points=n, live_pairs=live, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, **b, **res)
+
+    x, g, path_cfg = captured["corner_grad_step"]
+    k1 = report["hashgrid_encode_bwd"]
+    for interp, entry in (("tet", k1), ("cube", k1["cube"])):
+        cfg = dataclasses.replace(path_cfg, interp=interp)
+        entry["captured"] = {"train_step": table_grad(
+            f"table grad (K1 fused) {interp} on one corner step's x and g",
+            hg.table_grad_kernel, hg.table_grad_plain, x, g, cfg,
+            cfg.total_entries * cfg.n_features * 4, cfg.corners,
+            baseline and baseline.table_grad_fn)}
+
     x, g, cfg = captured["cell_step"]
-    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
-    got = hg.tet_factor_grad_x_kernel(x, g, cfg)
-    want = hg.tet_factor_grad_x_plain(x, g.double(), cfg)
-    torch.cuda.synchronize()
-    scale = float(want.abs().max())
-    err = float((got - want).abs().max())
-    del got, want
-    ms, res = timed(lambda: hg.tet_factor_grad_x_kernel(x, g, cfg),
-                    baseline and (lambda: baseline.factor_route_fn(x, g,
-                                                                   cfg)))
-    plain_ms = cuda_ms(lambda: hg.tet_factor_grad_x_plain(x, g, cfg), iters=5)
-    # x, g and the output once; a multiply and an add for each product of
-    # the (point, level) pairs with a nonzero cotangent
-    live = int((g.reshape(n, L, F) != 0).any(dim=2).sum())
-    b = bound(n * 12 + n * L * F * 4 + cfg.total_entries * 8 * F * 4,
-              live * 8 * F)
-    report["cell_factor_grad"]["captured"] = {"cell_step": dict(
-        points=n, live_pairs=live, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, **b, **res)}
-    print(f"cell factor grad (K7 fused) on one cell step's x and g ({n} "
-          f"points, {live} of {n * L} (point, level) pairs with a nonzero "
-          f"cotangent): max_abs_err {err}, relative {err / scale} (limit "
-          f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline {res} "
-          f"[{card}]")
-    check(err <= 1e-5 * scale, f"K7 on the cell step disagrees: {err}")
+    report["cell_factor_grad"]["captured"] = {"cell_step": table_grad(
+        "cell factor grad (K7 fused) on one cell step's x and g",
+        hg.tet_factor_grad_x_kernel, hg.tet_factor_grad_x_plain, x, g, cfg,
+        cfg.total_entries * cfg.row_width * 4, 4,
+        baseline and baseline.factor_x_fn)}
+
+    x, g, cfg = captured["cell_f32_step"]
+    entry = table_grad(
+        "cell row grad (K5 fused) on one f32 cell step's x and g",
+        hg.cell_row_grad_x_kernel, hg.cell_row_grad_x_plain, x, g, cfg,
+        cfg.total_entries * cfg.row_width * 4, cfg.corners,
+        baseline and baseline.rows_route_fn)
+    entry["route_ms"] = cuda_ms(
+        lambda: rows_route(x, g, cfg, hs.row_grad_kernel), iters=5)
+    print(f"cell row grad (K5) on the same inputs, the route it replaced: "
+          f"{entry['route_ms']:.4f} ms [{card}]")
+    report["cell_row_grad_x"]["captured"] = {"cell_f32_step": entry}
 
 
 def main() -> int:
@@ -1146,13 +1271,16 @@ def main() -> int:
     profile = "--profile" in args
     baseline = (Baseline(args[args.index("--baseline") + 1])
                 if "--baseline" in args else None)
-    # the eight kernels of the JSON line (K7 is its fused entry); K7's
-    # stream entry is counted too, and must stay off the paths
+    # the eight kernels of the JSON line (K5 and K7 are their fused
+    # entries); their stream entries are counted too, and must stay off
+    # the paths
     kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
                hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL,
-               hs.CELL_ROW_GRAD_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
+               hg.CELL_ROW_GRAD_X_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
                hg.CELL_FACTOR_GRAD_X_KERNEL]
-    counted = kernels + [hs.CELL_FACTOR_GRAD_KERNEL]
+    streams = {"cell_row_grad_x": hs.CELL_ROW_GRAD_KERNEL,
+               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL}
+    counted = kernels + list(streams.values())
     libraries = sorted({k.library for k in counted})
     jobs = [partial(build, lib) for lib in libraries]
     if baseline is not None:
@@ -1183,7 +1311,7 @@ def main() -> int:
                   scene="fixture")
     # phase 4: the trainer defaults (corner layout, 2^18 samples)
     train_launches, _ = train_slice(
-        torch, counted, card, views,
+        torch, counted, card, views, "train",
         Stage1Config(root=tempfile.mkdtemp(prefix="qf_smoke_"), **common),
         ("hashgrid_encode", "occ_bits", "segment_sum", "hashgrid_encode_bwd"),
         (hg, "table_grad_kernel", hg.table_grad_plain),
@@ -1200,17 +1328,34 @@ def main() -> int:
     print(f"cell model: {cell_cfg.ngp_config()}, "
           f"{cell_cfg.ngp_config().hashgrid.total_entries} rows")
     cell_launches, n_steps = train_slice(
-        torch, counted, card, views, cell_cfg,
+        torch, counted, card, views, "train_cell", cell_cfg,
         ("occ_bits", "segment_sum", "cell_factor_grad"),
         (hg, "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain),
         captured, profile)
     check(cell_launches["cell_factor_grad"] == n_steps,
           f"K7 launched {cell_launches['cell_factor_grad']} times in "
           f"{n_steps} steps")
-    check(cell_launches["cell_row_grad"] == 0
-          and cell_launches["cell_pair_grad"] == 0
-          and cell_launches["cell_factor_grad_stream"] == 0,
+    check(all(cell_launches[k] == 0 for k in (
+        "cell_row_grad_x", "cell_row_grad", "cell_pair_grad",
+        "cell_factor_grad_stream")),
           "the cell training path launched K5, K6 or K7's stream entry")
+    # the same configuration with the CLI's default table gradient for
+    # --layout cell (--grad_payload f32): the rows route, K5 fused
+    f32_cfg = dataclasses.replace(
+        cell_cfg, root=tempfile.mkdtemp(prefix="qf_smoke_"),
+        grad_payload="f32")
+    f32_launches, n_f32 = train_slice(
+        torch, counted, card, views, "train_cell_f32", f32_cfg,
+        ("occ_bits", "segment_sum", "cell_row_grad_x"),
+        (hg, "cell_row_grad_x_kernel", hg.cell_row_grad_x_plain),
+        captured, profile)
+    check(f32_launches["cell_row_grad_x"] == n_f32,
+          f"K5 launched {f32_launches['cell_row_grad_x']} times in "
+          f"{n_f32} steps")
+    check(all(f32_launches[k] == 0 for k in (
+        "cell_row_grad", "cell_pair_grad", "cell_factor_grad",
+        "cell_factor_grad_stream")),
+          "the f32 cell training path launched K5's stream entry, K6 or K7")
 
     time_captured(torch, report, captured, card, baseline)
 
@@ -1220,7 +1365,12 @@ def main() -> int:
     check(not ref, f"the port imported the JAX package: {ref}")
 
     paths = {"eval": eval_launches, "train": train_launches,
-             "train_cell": cell_launches}
+             "train_cell": cell_launches, "train_cell_f32": f32_launches}
+    for name, stream in streams.items():
+        report[name]["stream"]["launches_by_path"] = {
+            p: n[stream.name] for p, n in paths.items()}
+    report["cell_row_grad_x"]["also_replaces"] = (
+        "quadraturefields_tpu/ops/hashgrid_sorted.py:116")
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -7,38 +7,41 @@
 // lax.sort of the stream by entry and walks the sorted stream window by
 // window with one-hot matmuls, a sequential grid that carries a window's
 // sums from one step to the next:
-//   K5 _row_acc_kernel_packed (sorted_row_grad): f32 rows [M, RW];
+//   K5 _row_acc_kernel_packed and _row_acc_kernel, its packed=False form
+//      (sorted_row_grad): f32 rows [M, RW];
 //   K6 _row_acc_kernel_pair (sorted_pair_grad): lo, hi [M, PW], each
 //      value rounded to bf16, column 2k <- lo[k], 2k+1 <- hi[k].
 // The third form, K7's bf16 factors, is cell_factor_grad.cu.
-// Hopper runs blocks in no order, so nothing is sorted: each thread adds
-// its part of one contribution into the gradient with one 16-byte float4
-// atomicAdd (native on sm_90, global memory). Entries outside [0, E) are
-// skipped, and so are atomics whose values are all zero (the renderer's
-// padded samples carry zero cotangents; adding zeros changes no sum).
-// The order of the sums varies from run to run.
 //
-// What bounds them on an H100: bytes, then the atomics. Reading the
-// stream once (with int64 entries, 8 + 128 B a contribution at F = 4)
-// and writing [E, 8F]; at the stage-1 cell scale (M = 8.4M
-// contributions into E = 439,472 rows of 32 floats) ~0.35 ms at
-// 3.35 TB/s. Next come the atomics' throughput in L2: the dense coarse
-// level (3,376 rows) takes ~310 contributions a row.
-#include <cuda_bf16.h>
-
-#include "common.cuh"
+// K5 has two entries. qf_cell_row_grad_x is the cell encode's backward
+// (ops/hashgrid.py cell_row_grad_x): no contribution stream is built.
+// For each (point, level) a lane computes the cell row and the tet or
+// cube weights from x, reads its F values of g itself and adds
+// w[slot] * g[f] (f32, or rounded to bf16 for the bf16sim payload) at
+// column slot * F + f, on the warp-aggregated core of cell_grad.cuh that
+// K7 uses too. What bounds it: the atomics' throughput in L2, against a
+// bound of reading x and g once and writing [E, 8F] (2^20 points, L8
+// F4: 12.6 + 134 + 56 MB, ~61 us at 3.35 TB/s); the stream it replaces
+// was 1.07 GB, written by PyTorch and read back here.
+//
+// qf_cell_row_grad (K5's stream, JAX's interface) and qf_cell_pair_grad
+// (K6): Hopper runs blocks in no order, so nothing is sorted: each thread
+// adds its part of one contribution into the gradient with one 16-byte
+// float4 atomicAdd (native on sm_90, global memory). Entries outside
+// [0, E) are skipped, and so are atomics whose values are all zero (the
+// renderer's padded samples carry zero cotangents; adding zeros changes
+// no sum). The order of the sums varies from run to run. What bounds
+// them on an H100: bytes, then the atomics. Reading the stream once
+// (with int64 entries, 8 + 128 B a contribution at F = 4) and writing
+// [E, 8F]; at the stage-1 cell scale (M = 8.4M contributions into
+// E = 439,472 rows of 32 floats) ~0.35 ms at 3.35 TB/s. Next come the
+// atomics' throughput in L2: the dense coarse level (3,376 rows) takes
+// ~310 contributions a row.
+#include "cell_grad.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ bool all_zero(float4 v) {
-  return v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f;
-}
 
 template <typename Idx>
 __device__ __forceinline__ long long entry(const Idx* __restrict__ idx,
@@ -146,4 +149,42 @@ QF_EXPORT int qf_cell_pair_grad(const void* idx, int idx_is_64,
         static_cast<const int*>(idx), a, b, o, m, shift, n_entries);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5 fused from positions (the cell encode's backward). x [n, 3] f32,
+// g [n, L*F] f32 (16-byte aligned, 8 at F = 2), out [n_entries, 8F] f32
+// zeroed by the caller and added into, all device memory; F in {2, 4, 8,
+// 16}; tet: the Kuhn weights, else the 8 trilinear ones; bf16sim: each
+// product rounded to bf16, else f32. The per-level arrays (length L) are
+// host memory: scales, cells per axis, level sizes and row offsets.
+QF_EXPORT int qf_cell_row_grad_x(const float* x, const float* g, float* out,
+                                 long long n, int n_levels, int n_features,
+                                 const float* scales, const int* n_axis,
+                                 const long long* sizes,
+                                 const long long* offsets,
+                                 long long n_entries, int tet, int bf16sim,
+                                 void* stream) {
+  Levels lv;
+  if (n < 0 || n_entries <= 0 || n_entries > kMaxCellEntries ||
+      !make_levels(n_levels, scales, n_axis, sizes, offsets, &lv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int f = n_features;
+  cudaError_t err;
+  if (tet && bf16sim) {
+    err = launch_cell_grad_x<true, Payload::kBf16Sim>(
+        x, g, out, n, n_levels, f, lv, n_entries, s);
+  } else if (tet) {
+    err = launch_cell_grad_x<true, Payload::kF32>(
+        x, g, out, n, n_levels, f, lv, n_entries, s);
+  } else if (bf16sim) {
+    err = launch_cell_grad_x<false, Payload::kBf16Sim>(
+        x, g, out, n, n_levels, f, lv, n_entries, s);
+  } else {
+    err = launch_cell_grad_x<false, Payload::kF32>(
+        x, g, out, n, n_levels, f, lv, n_entries, s);
+  }
+  return static_cast<int>(err);
 }

@@ -54,14 +54,31 @@
 // sorted_table_grad at ops/hashgrid.py:736-756). There the contribution
 // stream (entry, w*g0, w*g1) of all N*L*C corners is sorted by entry
 // and summed window by window with one-hot matmuls. Here nothing is
-// materialised or sorted: one thread per (point, level) recomputes its
-// corners with the forward's own level_corners, reads its F cotangent
-// values and adds w*g into the zeroed gradient with atomics. What bounds
-// it on an H100: reading x and g and writing the [E, F] gradient (87 MB
-// at 2^18 points, L16 F2 T2^19: ~26 us at 3.35 TB/s) plus the atomics'
-// throughput in L2, which the coarse dense levels (4096 rows hit by
-// every point) contend for; the design spends one float2 atomic per
-// corner at F = 2 to halve their count.
+// materialised or sorted: each (point, level) recomputes its corners
+// with the forward's own level_corners, reads its F cotangent values and
+// adds w*g into the zeroed gradient with atomics. What bounds it on an
+// H100: reading x and g and writing the [E, F] gradient (87 MB at 2^18
+// points, L16 F2 T2^19: ~26 us at 3.35 TB/s) plus the atomics'
+// throughput in L2. The coarse dense levels (4096 rows at level 0) take
+// ~256 adds a row per step, which serialise in L2. The design:
+// - A block per 32 consecutive points; its warps take the levels in
+//   turn, so the lanes of a warp hold the 32 points at one level. The
+//   renderer emits samples ray by ray, so on every level coarser than
+//   the sample spacing neighbouring lanes share corner rows. The block
+//   first copies the points' cotangent rows into shared memory with
+//   coalesced loads: a lane reading its level's F values straight from
+//   g (8 bytes at a stride of L*F*4) lost to one thread per (point,
+//   level) on uniform points (PERF.md).
+// - Warp aggregation where rows repeat: if some lane shares its
+//   neighbour's cell (one shuffle and one vote a task),
+//   __match_any_sync groups the lanes of equal rows corner by corner,
+//   and a group adds its f32 sum with one atomic (one vector atomic per
+//   16 bytes of the row) instead of one per lane. Elsewhere the lanes
+//   add their corners back to back: matching every corner, and a zero
+//   test before each atomic, cost more than they saved on uniform
+//   points.
+// - Lanes whose cotangent values are all zero (the sample budget's
+//   padded slots, all at one position) add nothing.
 #include "grid_levels.cuh"
 
 namespace {
@@ -298,47 +315,166 @@ encode_cube_kernel(const float* __restrict__ x,
   }
 }
 
+// Adds the F values v at row `row` of dtab: one scalar atomic at F = 1,
+// one float2 at F = 2, one float4 per 4 floats at F >= 4 (native on
+// sm_90). No zero test here: the lanes of zero cotangents are skipped
+// before.
+template <int F>
+__device__ __forceinline__ void add_row(float* __restrict__ dtab,
+                                        long long row, const float (&v)[F]) {
+  if constexpr (F == 1) {
+    atomicAdd(dtab + row, v[0]);
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dtab) + row, make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      atomicAdd(reinterpret_cast<float4*>(dtab + row * F) + q,
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                            v[4 * q + 3]));
+    }
+  }
+}
+
 // Table gradient of the encode (K1, fused): d_table[row] += w * g[p, l]
-// for every corner of every (point, level). No sort: each thread
-// recomputes its corners with level_corners and adds in place with
-// atomics, one float2 atomicAdd per corner at F == 2 (native on
-// sm_90), scalar atomics otherwise. The order of the sums varies from
-// run to run, so results match the plain version to f32 rounding only.
+// for every corner of every (point, level), recomputed with
+// level_corners. A block takes a group of 32 consecutive points; it
+// copies their cotangent rows [32, L*F] (contiguous in g) into
+// bank-padded shared rows with coalesced vector loads, and its warps
+// take the levels in turn, so the 32 lanes of a warp hold the group at
+// one level. Where some lane shares its neighbour's cell (corner 0),
+// __match_any_sync on each corner's row (within the level) groups the
+// lanes of equal rows: a lane alone adds its F products straight from
+// registers; a group publishes its products to shared memory, and its
+// first lane (its first two at F = 8, one float4 chunk each) sums them
+// over the group in lane order and adds the sum with one atomic.
+// Elsewhere every lane adds its corners with one atomic each, back to
+// back. Lanes whose F cotangent values are all zero add nothing. The
+// order of the sums varies from run to run, so results match the plain
+// version to f32 rounding only.
 template <int F, bool kTet>
 __global__ void __launch_bounds__(kThreads)
 encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   float* __restrict__ d_table, long long n, int n_levels,
                   Levels lv) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n * n_levels) return;
-  const long long p = i / n_levels;
-  const int l = static_cast<int>(i - p * n_levels);
-  float* dtab = d_table + lv.offset[l] * F;
-  const Corners<kTet> c = level_corners<kTet>(
-      x, p, lv.scale[l], lv.res[l], lv.hashed[l], lv.mask[l]);
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kChunks = F < 4 ? 1 : F / 4;  // atomics a row
+  constexpr int V = F < 4 ? F : 4;
+  __shared__ float products[kWarps][F][32];
+  extern __shared__ float4 g_smem[];
+  float* g_tile = reinterpret_cast<float*>(g_smem);
+  const int stride = tile_stride(n_levels, F);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long p0 = static_cast<long long>(blockIdx.x) * 32;
+  const int n_tile = static_cast<int>(min(32LL, n - p0));
 
-  const float* gp = g + p * n_levels * F + l * F;
-  float gv[F];
-  if constexpr (F == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(gp));
-    gv[0] = v.x;
-    gv[1] = v.y;
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) gv[f] = __ldg(gp + f);
+  const int vecs = n_levels * F / V;
+  const float* src = g + p0 * n_levels * F;
+  for (int i = threadIdx.x; i < n_tile * vecs; i += blockDim.x) {
+    const int pt = i / vecs;
+    copy_vec<V>(g_tile + pt * stride + (i - pt * vecs) * V,
+                src + static_cast<long long>(i) * V);
   }
+  __syncthreads();
+
+  const long long p = p0 + lane;
+  float (&mine)[F][32] = products[warp];
+  for (int l = warp; l < n_levels; l += blockDim.x >> 5) {
+    float gv[F] = {};
+    bool live = false;
+    Corners<kTet> c;
+    if (lane < n_tile) {
+      c = level_corners<kTet>(x, p, lv.scale[l], lv.res[l], lv.hashed[l],
+                              lv.mask[l]);
+      const float* gs = g_tile + lane * stride + l * F;
+      if constexpr (F == 1) {
+        gv[0] = gs[0];
+      } else if constexpr (F == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(gs);
+        gv[0] = v.x;
+        gv[1] = v.y;
+      } else {
 #pragma unroll
-  for (int k = 0; k < Corners<kTet>::kCount; ++k) {
-    if constexpr (F == 2) {
-      atomicAdd(reinterpret_cast<float2*>(dtab) + c.row[k],
-                make_float2(__fmul_rn(c.w[k], gv[0]),
-                            __fmul_rn(c.w[k], gv[1])));
-    } else {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        atomicAdd(dtab + c.row[k] * F + f, __fmul_rn(c.w[k], gv[f]));
+        for (int q = 0; q < F / 4; ++q) {
+          const float4 v = reinterpret_cast<const float4*>(gs)[q];
+          gv[4 * q] = v.x;
+          gv[4 * q + 1] = v.y;
+          gv[4 * q + 2] = v.z;
+          gv[4 * q + 3] = v.w;
+        }
       }
+#pragma unroll
+      for (int f = 0; f < F; ++f) live |= gv[f] != 0.0f;
+    }
+    const unsigned int live_lanes = __ballot_sync(0xffffffffu, live);
+    if (live_lanes == 0) continue;  // the whole warp
+    float* dtab = d_table + lv.offset[l] * F;
+
+    // rows within a level are < 2^32; dead lanes group among themselves
+    // and are masked out
+    auto row_of = [&](int k) {
+      return live ? static_cast<unsigned int>(c.row[k]) : 0xffffffffu;
+    };
+    // merge only where some lane shares its neighbour's cell: samples
+    // along a ray sit in neighbouring lanes, uniform points almost never
+    // do, and there the per-corner matches cost more than they save
+    // (rows repeated otherwise are added unmerged, which is as right).
+    // Every lane runs the shuffle: it must not sit behind a && that
+    // short-circuits.
+    const unsigned int row0 = row_of(0);
+    const unsigned int prev0 = __shfl_up_sync(0xffffffffu, row0, 1);
+    if (__ballot_sync(0xffffffffu, live && lane > 0 && prev0 == row0) == 0) {
+      if (live) {
+#pragma unroll
+        for (int k = 0; k < Corners<kTet>::kCount; ++k) {
+          float v[F];
+#pragma unroll
+          for (int f = 0; f < F; ++f) v[f] = __fmul_rn(c.w[k], gv[f]);
+          add_row<F>(dtab, c.row[k], v);
+        }
+      }
+      continue;  // the whole warp
+    }
+
+#pragma unroll
+    for (int k = 0; k < Corners<kTet>::kCount; ++k) {
+      const unsigned int group =
+          __match_any_sync(0xffffffffu, row_of(k)) & live_lanes;
+      float v[F] = {};
+      if (live) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = __fmul_rn(c.w[k], gv[f]);
+      }
+      const bool alone = group == (1u << lane);
+      if (live && alone) add_row<F>(dtab, c.row[k], v);
+      if (__ballot_sync(0xffffffffu, live && !alone) == 0) continue;
+      if (live && !alone) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) mine[f][lane] = v[f];
+      }
+      __syncwarp();
+      const int rank = __popc(group & ((1u << lane) - 1u));
+      if (live && !alone && rank < kChunks) {
+        // chunk `rank` of the row: floats 4 rank .. (all F below F = 4)
+        float acc[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+        for (unsigned int rest = group; rest; rest &= rest - 1u) {
+          const int j = __ffs(rest) - 1;
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            acc[i] = __fadd_rn(acc[i], mine[rank * V + i][j]);
+          }
+        }
+        if constexpr (F <= 4) {
+          add_row<F>(dtab, c.row[k], acc);
+        } else {
+          atomicAdd(reinterpret_cast<float4*>(dtab + c.row[k] * F) + rank,
+                    make_float4(acc[0], acc[1], acc[2], acc[3]));
+        }
+      }
+      __syncwarp();
     }
   }
 }
@@ -372,12 +508,17 @@ template <int F>
 cudaError_t launch_bwd(bool tet, const float* x, const float* g,
                        float* d_table, long long n, int n_levels,
                        const Levels& lv, cudaStream_t stream) {
-  const unsigned int blocks = qf_blocks(n * n_levels, kThreads);
+  // a block per 32 points, a warp per level up to 8; the group's padded
+  // cotangent rows (33 KB at L = 32, F = 8) in dynamic shared memory
+  const unsigned int blocks = qf_blocks(n, 32);
+  const int threads = 32 * min(kThreads / 32, n_levels);
+  const size_t smem =
+      static_cast<size_t>(32) * tile_stride(n_levels, F) * sizeof(float);
   if (tet) {
-    encode_bwd_kernel<F, true><<<blocks, kThreads, 0, stream>>>(
+    encode_bwd_kernel<F, true><<<blocks, threads, smem, stream>>>(
         x, g, d_table, n, n_levels, lv);
   } else {
-    encode_bwd_kernel<F, false><<<blocks, kThreads, 0, stream>>>(
+    encode_bwd_kernel<F, false><<<blocks, threads, smem, stream>>>(
         x, g, d_table, n, n_levels, lv);
   }
   return cudaGetLastError();
@@ -409,9 +550,11 @@ QF_EXPORT int qf_hashgrid_encode(const float* x, const float* table,
   return static_cast<int>(err);
 }
 
-// x [n, 3] f32, g [n, L*F] f32 (the output's cotangent), d_table [E, F]
-// f32 zeroed by the caller and added into, all device memory; the
-// per-level arrays (length L) are host memory.
+// x [n, 3] f32, g [n, L*F] f32 (the output's cotangent; 4 * min(F, 4)
+// -byte aligned), d_table [E, F] f32 zeroed by the caller and added
+// into, all device memory; the per-level arrays (length L) are host
+// memory, each level smaller than 2^32 rows (the lanes match rows
+// within a level in 32 bits).
 QF_EXPORT int qf_hashgrid_encode_bwd(const float* x, const float* g,
                                      float* d_table, long long n,
                                      int n_levels, int n_features, int tet,
@@ -422,6 +565,9 @@ QF_EXPORT int qf_hashgrid_encode_bwd(const float* x, const float* g,
   Levels lv;
   if (n <= 0 || !make_levels(n_levels, scales, res, sizes, offsets, &lv)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int l = 0; l < n_levels; ++l) {
+    if (sizes[l] > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

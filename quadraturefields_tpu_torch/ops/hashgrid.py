@@ -22,8 +22,10 @@ for it either). The table gradient follows JAX's `_cell_bwd` routing
 (`_cell_grad_route`) onto one of three segment sums: K7
 (`tet_factor_grad_x`: the fused entry of csrc/cell_factor_grad.cu,
 which computes each (point, level)'s cell row and Kuhn weights from x
-itself), K6 (`sorted_pair_grad`) or K5 (`sorted_row_grad`) of
-hashgrid_sorted.py, each a CUDA kernel on the card and its plain
+itself), K6 (`sorted_pair_grad` of hashgrid_sorted.py) or K5
+(`cell_row_grad_x`: the fused entry of csrc/cell_table_grad.cu, from x
+as K7's, for F in CELL_GRAD_X_FEATURES; other F take K5's stream
+entry, `sorted_row_grad`), each a CUDA kernel on the card and its plain
 version on the CPU.
 The position gradient is taken by autograd through the weights. One
 known difference from JAX, on a set of measure zero: the weights clip
@@ -365,8 +367,9 @@ def table_grad_kernel(x: torch.Tensor, g: torch.Tensor,
     if g.shape != (x.shape[0], cfg.output_dim):
         raise ValueError(f"g is {tuple(g.shape)}, expected "
                          f"{(x.shape[0], cfg.output_dim)}")
-    if g.data_ptr() % 8:
-        raise ValueError("g must be 8-byte aligned")
+    align = 4 * min(cfg.n_features, 4)
+    if g.data_ptr() % align:
+        raise ValueError(f"g must be {align}-byte aligned")
     d_table = torch.zeros((cfg.total_entries, cfg.n_features),
                           dtype=torch.float32, device=x.device)
     if x.shape[0]:
@@ -404,25 +407,29 @@ def _cell_kuhn(frac: torch.Tensor):
     return wk, s1.to(torch.int32), s2.to(torch.int32)
 
 
+def _cell_w8(frac: torch.Tensor, cfg: HashGridConfig) -> torch.Tensor:
+    """The 8 dense corner weights [N, 8] of one level's cell fractions:
+    slot c = i*4 + j*2 + k holds corner (i, j, k), the order of
+    _CORNERS. "tet" places the 4 Kuhn weights in their slots and zeros
+    in the other 4."""
+    if cfg.interp == "cube":
+        return _cube_weights(frac)
+    wk, s1, s2 = _cell_kuhn(frac)
+    slots = torch.stack([torch.zeros_like(s1), s1, s2,
+                         torch.full_like(s1, 7)], dim=1)
+    return torch.zeros((frac.shape[0], 8), dtype=torch.float32,
+                       device=frac.device).scatter(1, slots.long(), wk)
+
+
 def _cell_indices_weights(x: torch.Tensor, cfg: HashGridConfig):
     """One table row per (point, level) and its 8 dense corner weights.
 
-    Returns (idx [N, L] int64, w8 [N, L*8] f32); slot c = i*4 + j*2 + k
-    holds corner (i, j, k), the order of _CORNERS. "tet" places the 4
-    Kuhn weights in their slots and zeros in the other 4.
+    Returns (idx [N, L] int64, w8 [N, L*8] f32), as _cell_w8 per level.
     """
     idx_all, w_all = [], []
     for idx, frac in _cell_levels(x, cfg):
-        if cfg.interp == "cube":
-            w8 = _cube_weights(frac)
-        else:
-            wk, s1, s2 = _cell_kuhn(frac)
-            slots = torch.stack([torch.zeros_like(s1), s1, s2,
-                                 torch.full_like(s1, 7)], dim=1)
-            w8 = torch.zeros((x.shape[0], 8), dtype=torch.float32,
-                             device=x.device).scatter(1, slots.long(), wk)
         idx_all.append(idx[:, None])
-        w_all.append(w8)
+        w_all.append(_cell_w8(frac, cfg))
     return torch.cat(idx_all, dim=1), torch.cat(w_all, dim=1)
 
 
@@ -478,11 +485,18 @@ def tet_factor_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
     return out
 
 
-def tet_factor_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
-                             cfg: HashGridConfig) -> torch.Tensor:
-    """Launch the fused K7 (csrc/cell_factor_grad.cu) on CUDA tensors x
-    [N, 3] f32 in [0, 1] and g [N, L*F] f32, F in {2, 4, 8, 16} ->
-    [E, 8F] f32."""
+# the F that the fused cell table gradients (K7, K5) take
+CELL_GRAD_X_FEATURES = (2, 4, 8, 16)
+
+
+def launch_cell_grad_x(kernel: CudaKernel, x: torch.Tensor,
+                       g: torch.Tensor, cfg: HashGridConfig,
+                       *extra) -> torch.Tensor:
+    """Launch a fused cell table gradient of csrc/cell_grad.cuh's
+    interface (K7's or K5's entry, or another checkout's build of one)
+    on CUDA tensors x [N, 3] f32 and g [N, L*F] f32, F in
+    CELL_GRAD_X_FEATURES, with the entry's `extra` int arguments after
+    the row count -> [E, 8F] f32."""
     check_cuda_tensor(x, "x", torch.float32, x.device, 2)
     check_cuda_tensor(g, "g", torch.float32, x.device, 2)
     n, F, E = x.shape[0], cfg.n_features, cfg.total_entries
@@ -491,8 +505,8 @@ def tet_factor_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
     if g.shape != (n, cfg.output_dim):
         raise ValueError(f"g is {tuple(g.shape)}, expected "
                          f"{(n, cfg.output_dim)}")
-    if F not in (2, 4, 8, 16):
-        raise ValueError(f"F = {F} not in (2, 4, 8, 16)")
+    if F not in CELL_GRAD_X_FEATURES:
+        raise ValueError(f"F = {F} not in {CELL_GRAD_X_FEATURES}")
     if E >= 2**31:
         raise ValueError(f"{E} rows: the kernel takes < 2^31")
     if g.data_ptr() % (8 if F == 2 else 16):
@@ -501,13 +515,19 @@ def tet_factor_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
     if n:
         scales, res, sizes, offsets = _level_arrays(cfg)
         n_axis = res - 1
-        CELL_FACTOR_GRAD_X_KERNEL.launch(
+        kernel.launch(
             x.device, ptr(x), ptr(g), ptr(out), n, cfg.n_levels, F,
-            scales.ctypes.data_as(ctypes.c_void_p),
-            n_axis.ctypes.data_as(ctypes.c_void_p),
-            sizes.ctypes.data_as(ctypes.c_void_p),
-            offsets.ctypes.data_as(ctypes.c_void_p), E)
+            *(a.ctypes.data_as(ctypes.c_void_p)
+              for a in (scales, n_axis, sizes, offsets)), E, *extra)
     return out
+
+
+def tet_factor_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
+                             cfg: HashGridConfig) -> torch.Tensor:
+    """Launch the fused K7 (csrc/cell_factor_grad.cu) on CUDA tensors x
+    [N, 3] f32 in [0, 1] and g [N, L*F] f32, F in CELL_GRAD_X_FEATURES
+    -> [E, 8F] f32."""
+    return launch_cell_grad_x(CELL_FACTOR_GRAD_X_KERNEL, x, g, cfg)
 
 
 def tet_factor_grad_x(x: torch.Tensor, g: torch.Tensor,
@@ -518,6 +538,64 @@ def tet_factor_grad_x(x: torch.Tensor, g: torch.Tensor,
     if x.device.type == "cpu":
         return tet_factor_grad_x_plain(x, g, cfg)
     return tet_factor_grad_x_kernel(x, g, cfg)
+
+
+CELL_ROW_GRAD_X_KERNEL = CudaKernel(
+    "cell_row_grad_x",
+    "qf_cell_row_grad_x",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_int],
+    replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:175",
+    library="cell_table_grad",
+)
+
+
+def cell_row_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
+                          cfg: HashGridConfig) -> torch.Tensor:
+    """K5's function from positions: the cell table gradient [E, 8F] of
+    x [N, 3] and the cotangent g [N, L*F] on the rows route, level by
+    level: each level's cell rows and 8 dense weights (_cell_levels,
+    _cell_w8), its [N, 8F] contribution rows w8[c] * g[f] at column
+    c*F + f, rounded to bf16 for the "bf16sim" payload, and one
+    index_add_. The same sums, in the same order per row, as the stream
+    route (_cell_indices_weights, the [N*L, 8F] rows, sorted_row_grad;
+    levels own disjoint rows). The products are taken in f32, as the
+    kernel takes them, and summed in f32 (f64 for f64 g, a reference
+    sum; its values are f32's)."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    dtype = torch.promote_types(g.dtype, torch.float32)
+    out = torch.zeros((cfg.total_entries, 8 * F), dtype=dtype,
+                      device=x.device)
+    g3 = g.to(torch.float32).reshape(n, L, 1, F)
+    for l, (idx, frac) in enumerate(_cell_levels(x, cfg)):
+        rows = (_cell_w8(frac, cfg)[:, :, None] * g3[:, l]).reshape(n, 8 * F)
+        if cfg.grad_payload == "bf16sim":
+            rows = rows.to(torch.bfloat16).to(torch.float32)
+        out.index_add_(0, idx, rows.to(dtype))
+    return out
+
+
+def cell_row_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
+                           cfg: HashGridConfig) -> torch.Tensor:
+    """Launch K5's fused entry (csrc/cell_table_grad.cu) on CUDA tensors x
+    [N, 3] f32 and g [N, L*F] f32, F in CELL_GRAD_X_FEATURES -> [E, 8F]
+    f32; tet or cube weights by cfg.interp, products rounded to bf16 for
+    the "bf16sim" payload."""
+    return launch_cell_grad_x(CELL_ROW_GRAD_X_KERNEL, x, g, cfg,
+                              int(cfg.interp == "tet"),
+                              int(cfg.grad_payload == "bf16sim"))
+
+
+def cell_row_grad_x(x: torch.Tensor, g: torch.Tensor,
+                    cfg: HashGridConfig) -> torch.Tensor:
+    """The cell table gradient on K5's route from positions x [N, 3] and
+    the cotangent g [N, L*F] f32: the fused kernel for CUDA tensors, its
+    plain version on the CPU."""
+    if x.device.type == "cpu":
+        return cell_row_grad_x_plain(x, g, cfg)
+    return cell_row_grad_x_kernel(x, g, cfg)
 
 
 def encode_cell_plain(table: torch.Tensor, x: torch.Tensor,
@@ -561,13 +639,17 @@ def _cell_grad_route(cfg: HashGridConfig, n: int, on_card: bool) -> str:
 def _cell_table_grad(x, g, cfg: HashGridConfig):
     """The cell table gradient [E, 8F] f32 of clamped x [N, 3] and the
     output's cotangent g [N, L*F] f32, on the route of
-    _cell_grad_route. Contributions are point-major (n, l)."""
+    _cell_grad_route. The rows route is K5's fused entry for F in
+    CELL_GRAD_X_FEATURES and K5's stream entry for any other F; the
+    stream's contributions are point-major (n, l)."""
     n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
     E = cfg.total_entries
     g2 = g.reshape(n * L, F)
     route = _cell_grad_route(cfg, n, on_card=x.device.type == "cuda")
     if route == "factor":
         return tet_factor_grad_x(x, g, cfg)
+    if route == "rows" and F in CELL_GRAD_X_FEATURES:
+        return cell_row_grad_x(x, g, cfg)
     idx, w8 = _cell_indices_weights(x, cfg)
     w8 = w8.reshape(n * L, 8, 1)
     if route == "pair":

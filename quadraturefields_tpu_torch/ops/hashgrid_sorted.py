@@ -22,8 +22,9 @@ Port of quadraturefields_tpu/ops/hashgrid_sorted.py:
   csrc/cell_factor_grad.cu (K7), the CPU `row_grad_plain`,
   `pair_grad_plain` and `tet_factor_grad_plain`. JAX sorts each stream
   by entry for the TPU's in-order grid; the port sums unsorted. The
-  cell encode's own backward does not build K7's stream: it launches the
-  fused entry of the same kernel (ops/hashgrid.py `tet_factor_grad_x`).
+  cell encode's own backward builds neither K7's stream nor K5's (but
+  for an F that K5's fused entry does not take): it launches the fused
+  entries (ops/hashgrid.py `tet_factor_grad_x`, `cell_row_grad_x`).
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """The port's cell-layout hash grid against the JAX package's, on the same
 seeded numpy inputs: the cell indices and weights, the encode, the three
 segment sums of the table gradient (K5 sorted_row_grad, K6
-sorted_pair_grad, K7 sorted_tet_factor_grad), the encode's VJP on every
-route of `_cell_bwd`, the route rule itself, one stage-1 training step,
+sorted_pair_grad, K7 sorted_tet_factor_grad), K5 and K7 from positions
+(cell_row_grad_x, tet_factor_grad_x), the encode's VJP on every route of
+`_cell_bwd`, the route rule itself, one stage-1 training step,
 the CLI with run_nerfsynthetic_tpu_fast.sh's flags, save / load and
 params_from_jax. JAX runs on the CPU, K5 and K6 in Pallas interpret
 mode and K7 through its CPU reference, as its own tests run them; the
@@ -245,6 +246,140 @@ def test_cell_backward_builds_no_factor_stream(monkeypatch):
     assert torch.equal(got, want)
 
 
+def _stream_rows_route(x, g, cfg):
+    """K5's stream route: the [N*L, 8F] contribution rows of
+    _cell_indices_weights (rounded to bf16 for bf16sim), then
+    sorted_row_grad."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    idx, w8 = thg._cell_indices_weights(x, cfg)
+    vals = (w8.reshape(n * L, 8, 1)
+            * g.reshape(n * L, F)[:, None, :]).reshape(n * L, 8 * F)
+    if cfg.grad_payload == "bf16sim":
+        vals = vals.to(torch.bfloat16).to(torch.float32)
+    return ths.sorted_row_grad(idx.reshape(-1), vals, cfg.total_entries)
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+@pytest.mark.parametrize("payload", ["f32", "bf16sim"])
+@pytest.mark.parametrize("n_features", [2, 4, 8])
+def test_cell_row_grad_x_plain_equals_stream_route(interp, payload,
+                                                   n_features):
+    """K5's plain version from positions, level by level, against the
+    stream route it replaces in the backward (_cell_indices_weights, the
+    [N*L, 8F] rows, sorted_row_grad's plain version): bit for bit, on
+    random points, grid knots and upper faces, with zero cotangent rows
+    among them."""
+    _, tcfg = _cfgs(interp=interp, n_features=n_features,
+                    grad_payload=payload)
+    x = torch.tensor(np.concatenate([_points(256, 11).clip(0, 1),
+                                     _knots_and_faces(tcfg, 11)]))
+    n, L, F = x.shape[0], tcfg.n_levels, n_features
+    fracs = [frac for _, frac in thg._cell_levels(x, tcfg)]
+    assert all(bool((f == 0).any()) for f in fracs)
+    assert all(bool((f == 1).any()) for f in fracs)
+    rng = np.random.default_rng(F + len(payload))
+    g = rng.normal(size=(n, L * F)).astype(np.float32)
+    g[::9] = 0.0
+    g = torch.tensor(g)
+    want = _stream_rows_route(x, g, tcfg)
+    got = thg.cell_row_grad_x_plain(x, g, tcfg)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(thg.cell_row_grad_x(x, g, tcfg), want)
+
+
+@pytest.mark.parametrize("mode,payload,interp,F", [
+    ("exact", "f32", "cube", 4),
+    ("sorted", "f32", "tet", 2),
+    ("exact", "bf16sim", "tet", 4),
+    ("sorted", "bf16sim", "cube", 2),
+    ("sorted", "bf16factor", "cube", 4),
+    ("exact", "bf16pair", "tet", 8),
+])
+def test_cell_row_grad_x_matches_jax_cell_bwd(mode, payload, interp, F):
+    """K5 from positions against JAX's `_cell_bwd` on its rows routes (f32
+    and bf16sim payloads, and the bf16factor / bf16pair requests that
+    fall back to f32 rows; "sorted" runs JAX's K5 in Pallas interpret
+    mode, "exact" its scatter) at L4, seeded points, knots and upper
+    faces: the same products, f32 sums in another order, so within 1e-5
+    of max |d_table|. Two dense levels (27 and 343 cells), two hashed
+    into 2^10 rows."""
+    kw = dict(n_levels=4, n_features=F, log2_hashmap_size=10,
+              base_resolution=4, per_level_scale=2.0, layout="cell",
+              interp=interp, grad_mode=mode, grad_payload=payload)
+    jcfg, tcfg = jhg.HashGridConfig(**kw), thg.HashGridConfig(**kw)
+    rng = np.random.default_rng(F + len(payload))
+    x = np.concatenate([rng.random((300, 3)).astype(np.float32),
+                        _knots_and_faces(tcfg, F)])
+    assert thg._cell_grad_route(tcfg, x.shape[0], on_card=False) == "rows"
+    g = rng.normal(size=(x.shape[0], jcfg.output_dim)).astype(np.float32)
+    table = np.zeros((jcfg.total_entries, 8 * F), np.float32)
+    want, _ = jhg._cell_bwd(jcfg, (jnp.asarray(table), jnp.asarray(x)),
+                            jnp.asarray(g))
+    want = np.asarray(want)
+    got = thg.cell_row_grad_x_plain(torch.tensor(x), torch.tensor(g),
+                                    tcfg).numpy()
+    assert got.shape == want.shape == (tcfg.total_entries, 8 * F)
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+def test_cell_backward_rows_route_builds_no_stream(interp, monkeypatch):
+    """The cell encode's backward on the rows route (d_table only: x does
+    not require grad) goes through cell_row_grad_x once and never builds
+    the [N*L, 8F] contribution stream (_cell_indices_weights, which the
+    plain forward still calls); its d_table equals the stream route's
+    bit for bit."""
+    _, tcfg = _cfgs(interp=interp, n_features=4, grad_mode="exact")
+    assert thg._cell_grad_route(tcfg, 300, on_card=False) == "rows"
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.random((300, 3)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(300, tcfg.output_dim))
+                     .astype(np.float32))
+    table = torch.zeros((tcfg.total_entries, 32), requires_grad=True)
+    want = _stream_rows_route(x, g, tcfg)
+    # the plain forward gathers with _cell_indices_weights itself
+    out = thg.hashgrid_encode(table, x, tcfg)
+
+    def no_stream(*a):
+        raise AssertionError("the backward built K5's stream")
+
+    monkeypatch.setattr(thg, "_cell_indices_weights", no_stream)
+    calls = []
+    fused = thg.cell_row_grad_x
+    monkeypatch.setattr(thg, "cell_row_grad_x",
+                        lambda *a: calls.append(a) or fused(*a))
+    (got,) = torch.autograd.grad(out, table, g)
+    assert len(calls) == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_features", [1, 2, 3, 4, 8, 16])
+def test_cell_rows_route_takes_the_fused_entry_by_f(n_features,
+                                                    monkeypatch):
+    """_cell_table_grad's rule on the rows route: F in
+    CELL_GRAD_X_FEATURES (2, 4, 8, 16) takes K5's fused entry
+    (cell_row_grad_x), any other F K5's stream entry (sorted_row_grad),
+    on the CPU as on the card; both give the same gradient."""
+    _, tcfg = _cfgs(interp="tet", n_features=n_features)
+    assert thg._cell_grad_route(tcfg, 100, on_card=False) == "rows"
+    rng = np.random.default_rng(n_features)
+    x = torch.tensor(rng.random((100, 3)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(100, tcfg.output_dim))
+                     .astype(np.float32))
+    calls = []
+    for mod, name in ((thg, "cell_row_grad_x"), (ths, "sorted_row_grad")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real:
+                            calls.append(_n) or _r(*a))
+    got = thg._cell_table_grad(x, g, tcfg)
+    fused = n_features in thg.CELL_GRAD_X_FEATURES
+    assert fused == (n_features in (2, 4, 8, 16))
+    assert calls == ["cell_row_grad_x" if fused else "sorted_row_grad"]
+    assert torch.equal(got, thg.cell_row_grad_x_plain(x, g, tcfg))
+
+
 # (grad_mode, grad_payload, interp, F, the port's route on the CPU)
 VJP_ROUTES = [
     ("exact", "f32", "tet", 2, "rows"),
@@ -387,13 +522,14 @@ FAST_FLAGS = ["--num_lobes", "0", "--num_layers", "2",
 def test_cli_trains_the_fast_cell_config(tmp_path, monkeypatch):
     """The CLI with the script's flags for a few steps on the CPU: the
     cell table [E, 32] trains (on the CPU "auto" takes the f32 rows, as
-    JAX's does), then the final evaluation, args.json and log.json."""
+    JAX's does, through K5's fused entry), then the final evaluation,
+    args.json and log.json."""
     monkeypatch.setattr(tcli, "Stage1Config", functools.partial(
         tst.Stage1Config, grid_resolution=32, eval_chunk=256))
     calls = []
-    rows = ths.sorted_row_grad
-    monkeypatch.setattr(ths, "sorted_row_grad",
-                        lambda *a: calls.append(a[1].shape) or rows(*a))
+    rows = thg.cell_row_grad_x
+    monkeypatch.setattr(thg, "cell_row_grad_x",
+                        lambda *a: calls.append(a[2]) or rows(*a))
     write_fixture_dataset(str(tmp_path / "data"), res=16, n_train=2,
                           n_test=1)
     argv = ["--scene", "fixture", "--data_root", str(tmp_path / "data"),
@@ -401,7 +537,7 @@ def test_cli_trains_the_fast_cell_config(tmp_path, monkeypatch):
             "--max_steps", "2", *FAST_FLAGS]
     metrics = tcli.main(argv, device="cpu")
     assert np.isfinite(metrics["psnr"])
-    assert len(calls) == 3 and all(s[1] == 32 for s in calls)
+    assert len(calls) == 3 and all(c.row_width == 32 for c in calls)
     args = json.loads((tmp_path / "runs" / "results" / "fixture" / "nerf"
                        / "args.json").read_text())
     assert (args["layout"], args["grad_payload"], args["n_features"],

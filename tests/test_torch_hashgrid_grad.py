@@ -1,6 +1,7 @@
 """The port's table gradients against the JAX package's, on the same
-seeded numpy inputs: the encode VJP (table and positions), K1's
-interface (sorted_table_grad), K8's interface (the bf16 value-space
+seeded numpy inputs: the encode VJP (table and positions, also on
+ray-ordered samples with a padded budget), K1's interface
+(sorted_table_grad), K8's interface (the bf16 value-space
 form) and the VJP of the presorted segment sum. JAX runs on the CPU,
 its Pallas kernels in interpret mode as its own tests run them; the
 port runs each kernel's plain PyTorch version."""
@@ -76,6 +77,58 @@ def test_grad_modes_share_one_function(mode):
     assert torch.equal(grad(mode), grad("auto"))
     with pytest.raises(NotImplementedError):
         grad("stochastic")
+
+
+def _ray_samples(rng, n, n_pad):
+    """n samples in ray order: runs of 8-48 samples along straight lines
+    (1/512 to 1/64 apart, clipped to the unit cube), the last n_pad of
+    them padding at one position, as a renderer's sample budget holds
+    them."""
+    parts, total = [], 0
+    while total < n - n_pad:
+        k = int(rng.integers(8, 49))
+        d = rng.normal(size=3)
+        t = np.arange(k)[:, None] * 2.0 ** -int(rng.integers(6, 10))
+        parts.append(np.clip(rng.random(3) + t * d / np.linalg.norm(d), 0, 1))
+        total += k
+    x = np.concatenate(parts)[:n - n_pad]
+    return np.concatenate([x, np.full((n_pad, 3), 0.5)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+@pytest.mark.parametrize("n_features", [1, 2, 4])
+def test_table_grad_ray_ordered_padded_matches_jax(interp, n_features):
+    """The corner table gradient (K1's function) on the inputs its card
+    kernel merges and skips: ray-ordered samples, a padded budget at one
+    position with zero cotangents, and rows with a single nonzero
+    cotangent value. The port's encode VJP (the plain sum on the CPU)
+    within 1e-5 of max |d_table| of jax.vjp of the "exact" encode; the
+    padding adds nothing, so the rows that only it touches stay zero."""
+    jcfg = jhg.HashGridConfig(**_grid_kw(interp, n_features, "exact"))
+    tcfg = thg.HashGridConfig(**_grid_kw(interp, n_features, "auto"))
+    rng = np.random.default_rng(n_features + 10)
+    n, n_pad = 1000, 200
+    x = _ray_samples(rng, n, n_pad)
+    g = rng.normal(size=(n, jcfg.output_dim)).astype(np.float32)
+    g[n - n_pad:] = 0.0
+    g[:n // 3].reshape(-1, 4, n_features)[:, :, 1:] = 0.0
+    table = rng.uniform(-1, 1, (jcfg.total_entries, n_features)) \
+        .astype(np.float32)
+    _, pull = jax.vjp(lambda t: jhg.hashgrid_encode(t, jnp.asarray(x), jcfg),
+                      jnp.asarray(table))
+    (dt_j,) = (np.asarray(a) for a in pull(jnp.asarray(g)))
+    tt = torch.tensor(table, requires_grad=True)
+    (dt_t,) = torch.autograd.grad(
+        thg.hashgrid_encode(tt, torch.tensor(x), tcfg), tt, torch.tensor(g))
+    dt_t = dt_t.numpy()
+    assert np.abs(dt_t - dt_j).max() <= 1e-5 * np.abs(dt_j).max()
+    idx, _ = thg._corner_indices_weights(torch.tensor(x), tcfg)
+    live = np.zeros(tcfg.total_entries, bool)
+    live[idx[:n - n_pad].reshape(-1).numpy()] = True
+    pad_only = np.setdiff1d(idx[n - n_pad:].reshape(-1).numpy(),
+                            np.flatnonzero(live))
+    assert pad_only.size > 0
+    assert np.all(dt_t[pad_only] == 0.0) and np.all(dt_j[pad_only] == 0.0)
 
 
 def _pairs_case(m, total_entries, seed, kind="uniform"):

@@ -3,10 +3,11 @@
 Each test builds its kernel from csrc/ (nvcc, sm_90a) and compares it
 with the plain version on the same CUDA tensors, on the edge cases that
 random main-path inputs rarely reach: the encode, its fused table
-gradient, the pair segment sum, the occupancy bits, the per-ray
-segment sum and the cell layout's table gradients K5, K6 and K7 (K7
-from its stream and fused from positions, alone and through the cell
-encode's backward). Without a card every test skips:
+gradient (also on ray-ordered samples with a padded budget), the pair
+segment sum, the occupancy bits, the per-ray segment sum and the cell
+layout's table gradients K5, K6 and K7 (K5 and K7 from their streams
+and fused from positions, alone and through the cell encode's
+backward). Without a card every test skips:
 a CUDA kernel has no CPU mode. The file imports no jax, so on a host
 without jax it runs without the repo's conftest:
 
@@ -192,6 +193,53 @@ def test_table_grad_kernel_matches_plain(dev, interp, n_features):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def _ray_samples(g, n, n_pad, dev):
+    """n samples in ray order: runs of 8-48 samples along straight lines
+    (1/512 to 1/64 apart, clipped to the unit cube), the last n_pad of
+    them padding at one position, as a renderer's sample budget holds
+    them."""
+    parts, total = [], 0
+    while total < n - n_pad:
+        k = int(torch.randint(8, 49, (1,), generator=g, device=dev))
+        o = torch.rand((1, 3), generator=g, device=dev)
+        d = torch.randn((1, 3), generator=g, device=dev)
+        step = 2.0 ** -float(torch.randint(6, 10, (1,), generator=g,
+                                           device=dev))
+        t = torch.arange(k, device=dev, dtype=torch.float32)[:, None] * step
+        parts.append((o + t * d / d.norm()).clamp(0.0, 1.0))
+        total += k
+    x = torch.cat(parts)[:n - n_pad]
+    pad = torch.full((n_pad, 3), 0.5, device=dev)
+    return torch.cat([x, pad]).contiguous()
+
+
+@pytest.mark.parametrize("interp", ["cube", "tet"])
+@pytest.mark.parametrize("n_features", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_levels", [1, 16, 32])
+def test_table_grad_kernel_ray_ordered(dev, interp, n_features, n_levels):
+    """K1 on ray-ordered samples (warps whose lanes share rows on the
+    coarse levels, merged before their atomics) with a padded budget
+    (zero cotangents at one position, skipped), rows with one nonzero
+    cotangent value among zeros (never skipped), ragged point groups
+    (n not a multiple of 32) and level counts that are not a multiple of
+    the 8 warps of a block: within 1e-5 of max |want|, want the plain
+    version's sum in float64."""
+    cfg = hg.HashGridConfig(n_levels=n_levels, n_features=n_features,
+                            log2_hashmap_size=12, base_resolution=4,
+                            per_level_scale=1.25, interp=interp)
+    g = torch.Generator(device=dev).manual_seed(n_levels + n_features)
+    for n, n_pad in ((20001, 3001), (33, 0), (70, 40)):
+        x = _ray_samples(g, n, n_pad, dev)
+        cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+        cot[n - n_pad:] = 0.0
+        one = cot[: n // 3].reshape(-1, n_levels, n_features)
+        one[:, :, 1:] = 0.0
+        before = hg.ENCODE_BWD_KERNEL.launches
+        got = hg.table_grad_kernel(x, cot, cfg)
+        _check_rel(got, hg.table_grad_plain(x, cot.double(), cfg))
+        assert hg.ENCODE_BWD_KERNEL.launches == before + 1
+
+
 def test_pairs_kernel_matches_plain(dev):
     """The pair segment sum (K1's and K8's interface): heavy duplicates
     (a thirty-second of the stream on 37 entries, ~250 each: the load of
@@ -367,6 +415,35 @@ def test_cell_factor_grad_x_kernel_matches_plain(dev, n_features):
         assert hg.CELL_FACTOR_GRAD_X_KERNEL.launches == before + 1
 
 
+@pytest.mark.parametrize("interp", ["cube", "tet"])
+@pytest.mark.parametrize("payload", ["f32", "bf16sim"])
+@pytest.mark.parametrize("n_features", [2, 4, 8, 16])
+def test_cell_row_grad_x_kernel_matches_plain(dev, interp, payload,
+                                              n_features):
+    """K5's fused entry through cell_row_grad_x, tet and cube, f32
+    products and products rounded to bf16, on uniform points, on runs of
+    equal points (warp-aggregated rows; at F = 2 two cube slots share a
+    float4 chunk), with a ragged warp and zero cotangent rows (skipped),
+    and on knots, upper faces and rank ties, on one dense and two hashed
+    levels: within 1e-5 of max |want|, want the plain version's sum in
+    float64 of the same f32 (and bf16) products."""
+    cfg = hg.HashGridConfig.from_max_resolution(
+        256, n_levels=3, n_features=n_features, log2_hashmap_size=12,
+        interp=interp, layout="cell", grad_mode="sorted",
+        grad_payload=payload)
+    g = torch.Generator(device=dev).manual_seed(n_features)
+    n = 50001
+    for x in (torch.rand((n, 3), generator=g, device=dev),
+              _runs(g, n, dev), _knots_faces_ties(cfg, g, dev)):
+        m = x.shape[0]
+        cot = torch.randn((m, cfg.output_dim), generator=g, device=dev)
+        cot[m // 50:m // 25] = 0.0
+        before = hg.CELL_ROW_GRAD_X_KERNEL.launches
+        got = hg.cell_row_grad_x(x, cot, cfg)
+        _check_rel(got, hg.cell_row_grad_x_plain(x, cot.double(), cfg))
+        assert hg.CELL_ROW_GRAD_X_KERNEL.launches == before + 1
+
+
 def test_cell_backward_runs_the_fused_factor_kernel(dev, monkeypatch):
     """On the card the cell encode's backward on K7's route launches the
     fused entry once and builds no contribution stream: neither
@@ -392,44 +469,49 @@ def test_cell_backward_runs_the_fused_factor_kernel(dev, monkeypatch):
     _check_rel(got, hg.tet_factor_grad_x_plain(x, cot.double(), cfg))
 
 
-@pytest.mark.parametrize("mode,payload,name", [
-    ("auto", "bf16factor", "tet_factor_grad_x_kernel"),
-    ("sorted", "bf16pair", "pair_grad_kernel"),
-    ("sorted", "f32", "row_grad_kernel"),
-    ("exact", "bf16sim", "row_grad_kernel"),
+@pytest.mark.parametrize("mode,payload,n_features,name", [
+    ("auto", "bf16factor", 4, "tet_factor_grad_x_kernel"),
+    ("sorted", "bf16pair", 4, "pair_grad_kernel"),
+    ("sorted", "f32", 4, "cell_row_grad_x_kernel"),
+    ("exact", "bf16sim", 4, "cell_row_grad_x_kernel"),
+    ("sorted", "bf16factor", 2, "cell_row_grad_x_kernel"),
+    ("sorted", "f32", 1, "row_grad_kernel"),
 ])
-def test_cell_encode_backward_launches_its_kernel(dev, mode, payload, name,
+def test_cell_encode_backward_launches_its_kernel(dev, mode, payload,
+                                                  n_features, name,
                                                   monkeypatch):
     """The cell encode's table gradient on the card takes JAX's route
     (`auto` is sorted here: 3 * E < n * L) and launches exactly that one
-    kernel (K7 through its fused entry), whose output lies within 1e-5
-    of max |want| of the plain version summed in float64 on the inputs
-    it was given."""
+    kernel (K7 and K5 through their fused entries; K5's stream entry
+    only for an F the fused entry does not take), whose output lies
+    within 1e-5 of max |want| of the plain version summed in float64 on
+    the inputs it was given."""
     cfg = hg.HashGridConfig.from_max_resolution(
-        512, n_levels=2, n_features=4, log2_hashmap_size=12, interp="tet",
-        layout="cell", grad_mode=mode, grad_payload=payload)
+        512, n_levels=2, n_features=n_features, log2_hashmap_size=12,
+        interp="tet", layout="cell", grad_mode=mode, grad_payload=payload)
     n = 20000
     assert cfg.total_entries * 3 < n * cfg.n_levels
     g = torch.Generator(device=dev).manual_seed(4)
-    table = (torch.rand((cfg.total_entries, 32), generator=g, device=dev)
-             * 2 - 1).requires_grad_(True)
+    table = (torch.rand((cfg.total_entries, 8 * n_features), generator=g,
+                        device=dev) * 2 - 1).requires_grad_(True)
     x = torch.rand((n, 3), generator=g, device=dev)
     cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
     calls = []
-    mod = hg if name == "tet_factor_grad_x_kernel" else hs
+    mod = hs if name in ("pair_grad_kernel", "row_grad_kernel") else hg
     real = getattr(mod, name)
     monkeypatch.setattr(mod, name, lambda *a: calls.append(a) or real(*a))
-    kernels = (hs.CELL_ROW_GRAD_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
-               hg.CELL_FACTOR_GRAD_X_KERNEL)
-    before = [k.launches for k in kernels]
+    kernels = {"row_grad_kernel": hs.CELL_ROW_GRAD_KERNEL,
+               "pair_grad_kernel": hs.CELL_PAIR_GRAD_KERNEL,
+               "tet_factor_grad_x_kernel": hg.CELL_FACTOR_GRAD_X_KERNEL,
+               "cell_row_grad_x_kernel": hg.CELL_ROW_GRAD_X_KERNEL}
+    before = {k: v.launches for k, v in kernels.items()}
     (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
                                  cot)
     assert len(calls) == 1
     plain = {"tet_factor_grad_x_kernel": hg.tet_factor_grad_x_plain,
              "pair_grad_kernel": hs.pair_grad_plain,
-             "row_grad_kernel": hs.row_grad_plain}[name]
+             "row_grad_kernel": hs.row_grad_plain,
+             "cell_row_grad_x_kernel": hg.cell_row_grad_x_plain}[name]
     _check_rel(got, plain(*_f64(calls[0])))
-    launched = [k.launches - b for k, b in zip(kernels, before)]
-    assert launched == [int(name == "row_grad_kernel"),
-                        int(name == "pair_grad_kernel"),
-                        int(name == "tet_factor_grad_x_kernel")]
+    launched = {k: v.launches - before[k] for k, v in kernels.items()}
+    assert launched == {k: int(k == name) for k in kernels}
