@@ -6,9 +6,8 @@
                                       # one evaluate() of phase 3 and the
                                       # training steps of phases 4 and 5
     python3 chip_smoke.py --baseline DIR
-        # and time the encode (K2), the corner table gradient (K1), the
-        # cell factor gradient (K7) and the cell row gradient's route (K5)
-        # of another checkout at DIR (e.g. a parent commit unpacked with
+        # and time K8's interface, K1's stream interface and K6's route of
+        # another checkout at DIR (e.g. a parent commit unpacked with
         # `git archive`) beside this one's, in turns, on the same inputs
 
 Phases (any failure raises and exits non-zero):
@@ -18,13 +17,14 @@ Phases (any failure raises and exits non-zero):
      the main paths' shapes, and time both (and the one-call library
      equivalent where there is one): the encode (K2), the occupancy
      bits (K4), the per-ray segment sum (K3), the fused table gradient
-     (K1) at 2^18 points, the pair segment sum at 16.8M contributions,
-     K8's bf16 value-space wrapper, and the cell layout's table
-     gradients K5, K6 and K7 at 8.4M contributions into the 439,472
-     rows of the run_nerfsynthetic_tpu_fast.sh grid (K7 and K5 fused
-     from 2^20 points and from their streams, also at F = 2; K5 fused
-     tet and cube, f32 and bf16sim, beside the stream route it
-     replaced);
+     (K1) at 2^18 points, K1's stream interface at 16.8M contributions,
+     K8's one-launch value-layout interface on the same stream, and the
+     cell layout's table gradients K5, K6 and K7 at 8.4M contributions
+     into the 439,472 rows of the run_nerfsynthetic_tpu_fast.sh grid
+     (each fused from 2^20 points and from its stream, K7 and K5 also at
+     F = 2; K5 fused tet and cube, f32 and bf16sim, and K6 fused beside
+     the stream routes they replaced; K6 fused also on grid knots, upper
+     faces and rank ties);
   3. the evaluation path: render fixture views at full model width
      (Stage1Config defaults, seeded random weights) through
      Stage1Trainer.evaluate with the one-shot renderer, count each
@@ -42,14 +42,16 @@ Phases (any failure raises and exits non-zero):
      mlp head, 2 head layers, a 2^20-sample budget); K7's fused entry
      must launch once a step, its stream entry, K5 and K6 never;
      then the same configuration with the CLI's default f32 table
-     gradient ("train_cell_f32"): K5's fused entry once a step, its
-     stream entry, K6 and K7 never;
-  6. K1, K2, K5 and K7 again, on the main paths' own inputs captured in
-     phases 3-5: the positions of one eval chunk (all its slots, and its
-     valid samples alone) and of one corner training step (K2, tet as
-     the paths run it and cube on the same positions), the positions and
-     cotangent of that corner step (K1, tet and cube) and of one step of
-     each cell path (K7, K5).
+     gradient ("train_cell_f32"): K5's fused entry once a step, and with
+     the bf16pair table gradient ("train_cell_bf16pair"): K6's fused
+     entry once a step; every other cell table gradient never;
+  6. K1, K2, K5, K6, K7 and K8 again, on the main paths' own inputs
+     captured in phases 3-5: the positions of one eval chunk (all its
+     slots, and its valid samples alone) and of one corner training step
+     (K2, tet as the paths run it and cube on the same positions), the
+     positions and cotangent of that corner step (K1, tet and cube; K8
+     and K1's stream interface on its contributions in ray order) and of
+     one step of each cell path (K7, K5, K6).
 The last two lines of standard output are a JSON summary of the kernels
 and the result line {"ok": true, "device": {...}}.
 """
@@ -224,86 +226,81 @@ def rows_route(x, g, cfg, stream_kernel):
     return stream_kernel(idx.reshape(-1), vals, cfg.total_entries)
 
 
+def pair_route(x, g, cfg, stream_kernel):
+    """K6's route before its fused entry: the [N*L, 4F] lo and hi pair
+    streams built with _cell_indices_weights, then a stream entry
+    stream_kernel(idx, lo, hi, E)."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    idx, w8 = hg._cell_indices_weights(x, cfg)
+    w8, g2 = w8.reshape(n * L, 8, 1), g.reshape(n * L, F)
+    lo = (w8 * g2[:, None, 0::2]).reshape(n * L, 4 * F)
+    hi = (w8 * g2[:, None, 1::2]).reshape(n * L, 4 * F)
+    return stream_kernel(idx.reshape(-1), lo, hi, cfg.total_entries)
+
+
 class Baseline:
-    """K2, K1, K7 (both entries) and K5's stream entry as another
-    checkout's csrc/ builds them (`--baseline DIR`), launched with the
-    arguments of this checkout's wrappers, whose C interfaces they
-    share."""
+    """The kernels this checkout redesigned, as another checkout's csrc/
+    builds them (`--baseline DIR`): K1's stream entry and K6's stream
+    entry, launched with the arguments of this checkout's wrappers,
+    whose C interfaces they share, and the other checkout's interfaces
+    built on them: K8's (PyTorch entries and bf16 casts, then the pair
+    kernel) and K6's route (the lo/hi streams, then K6's stream
+    entry)."""
 
     def __init__(self, root):
-        from quadraturefields_tpu_torch.ops import hashgrid as hg
         from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
         csrc = Path(root) / "quadraturefields_tpu_torch" / "csrc"
         check(csrc.is_dir(), f"--baseline: no csrc/ under {root}")
         tag = Path(root).resolve().name
-        self.encode = BaselineKernel(csrc, "hashgrid_encode",
-                                     hg.ENCODE_KERNEL, tag)
-        self.encode_bwd = BaselineKernel(csrc, "hashgrid_encode",
-                                         hg.ENCODE_BWD_KERNEL, tag)
-        self.factor_x = BaselineKernel(csrc, "cell_factor_grad",
-                                       hg.CELL_FACTOR_GRAD_X_KERNEL, tag)
-        self.factor = BaselineKernel(csrc, "cell_factor_grad",
-                                     hs.CELL_FACTOR_GRAD_KERNEL, tag)
-        self.rows = BaselineKernel(csrc, "cell_table_grad",
-                                   hs.CELL_ROW_GRAD_KERNEL, tag)
-        self.kernels = (self.encode, self.encode_bwd, self.factor_x,
-                        self.factor, self.rows)
+        self.pairs = BaselineKernel(csrc, "table_grad",
+                                    hs.TABLE_GRAD_PAIRS_KERNEL, tag)
+        self.pair = BaselineKernel(csrc, "cell_table_grad",
+                                   hs.CELL_PAIR_GRAD_KERNEL, tag)
+        self.kernels = (self.pairs, self.pair)
 
-    def encode_fn(self, table, x, cfg):
-        import torch
-
-        from quadraturefields_tpu_torch.ops import hashgrid as hg
-
-        out = torch.empty((x.shape[0], cfg.output_dim), dtype=torch.float32,
-                          device=x.device)
-        hg._launch_levels(self.encode, x, table, out, cfg)
-        return out
-
-    def table_grad_fn(self, x, g, cfg):
-        import torch
-
-        from quadraturefields_tpu_torch.ops import hashgrid as hg
-
-        d_table = torch.zeros((cfg.total_entries, cfg.n_features),
-                              dtype=torch.float32, device=x.device)
-        hg._launch_levels(self.encode_bwd, x, g, d_table, cfg)
-        return d_table
-
-    def factor_x_fn(self, x, g, cfg):
-        from quadraturefields_tpu_torch.ops import hashgrid as hg
-
-        return hg.launch_cell_grad_x(self.factor_x, x, g, cfg)
-
-    def factor_fn(self, idx, wk, c1, c2, g, n_entries):
+    def pairs_fn(self, idx, v0, v1, n_entries):
         import torch
 
         from quadraturefields_tpu_torch._cuda import ptr
 
-        m, F = g.shape
-        out = torch.zeros((n_entries, 8 * F), dtype=torch.float32,
-                          device=g.device)
-        self.factor.launch(g.device, ptr(idx), int(idx.dtype == torch.int64),
-                           ptr(wk), ptr(c1), ptr(c2), ptr(g), ptr(out), m, F,
-                           n_entries)
+        out = torch.zeros((n_entries, 2), dtype=torch.float32,
+                          device=v0.device)
+        self.pairs.launch(v0.device, ptr(idx), int(idx.dtype == torch.int64),
+                          ptr(v0), ptr(v1), ptr(out), idx.shape[0],
+                          n_entries)
         return out
 
-    def rows_fn(self, idx, vals, n_entries):
+    def values_fn(self, rows, lane0, v0, v1, total_values):
+        """The PR-5 form of K8's interface: the entries in int64 and the
+        bf16 casts in PyTorch, then the pair kernel."""
+        import torch
+
+        entries = (rows.to(torch.int64) * 128 + lane0.to(torch.int64)) // 2
+        v0 = v0.to(torch.bfloat16).to(torch.float32).contiguous()
+        v1 = v1.to(torch.bfloat16).to(torch.float32).contiguous()
+        n_entries = -(-total_values // 128) * 64
+        return self.pairs_fn(entries, v0, v1,
+                             n_entries).reshape(-1)[:total_values]
+
+    def pair_stream_fn(self, idx, lo, hi, n_entries):
         import torch
 
         from quadraturefields_tpu_torch._cuda import ptr
 
-        m, rw = vals.shape
-        out = torch.zeros((n_entries, rw), dtype=torch.float32,
-                          device=vals.device)
-        self.rows.launch(vals.device, ptr(idx), int(idx.dtype == torch.int64),
-                         ptr(vals), ptr(out), m, rw, n_entries)
+        m, pw = lo.shape
+        out = torch.zeros((n_entries, 2 * pw), dtype=torch.float32,
+                          device=lo.device)
+        self.pair.launch(lo.device, ptr(idx), int(idx.dtype == torch.int64),
+                         ptr(lo), ptr(hi), ptr(out), m, pw, n_entries)
         return out
 
-    def rows_route_fn(self, x, g, cfg):
-        """The parent's backward route of K5: the stream built by
-        _cell_indices_weights, then its stream entry."""
-        return rows_route(x, g, cfg, self.rows_fn)
+    def pair_route_fn(self, x, g, cfg):
+        """The other checkout's backward route of K6: the lo/hi streams
+        built from x, then its stream entry."""
+        return pair_route(x, g, cfg, self.pair_stream_fn)
 
 
 @contextmanager
@@ -394,10 +391,10 @@ class FixtureViews:
 def compare_kernels(torch, dev, report, baseline=None):
     """Phase 2: each kernel against its plain version at main-path
     shapes. Fills report[name] with max_abs_err, ms, plain_ms,
-    library_ms and the bound; with a baseline, the encode's time there
-    too (baseline_ms, timed in turns with this checkout's)."""
+    library_ms and the bound; with a baseline, the time of K8's
+    interface and of K1's stream entry there too (baseline_ms, timed in
+    turns with this checkout's)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
-    from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
 
@@ -420,20 +417,18 @@ def compare_kernels(torch, dev, report, baseline=None):
         want = hg.encode_plain(table, x, cfg)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        ms, res = timed(lambda: hg.encode_kernel(table, x, cfg),
-                        baseline and (lambda: baseline.encode_fn(table, x,
-                                                                 cfg)))
+        ms = cuda_ms(lambda: hg.encode_kernel(table, x, cfg))
         plain_ms = cuda_ms(lambda: hg.encode_plain(table, x, cfg), iters=5)
         b = encode_bound(torch, x, cfg)
         print(f"encode {interp}: {n} uniform points, {cfg.total_entries} "
               f"rows ({cfg.total_entries * 8 / 1e6:.1f} MB): max_abs_err "
               f"{err} (limit {0.0 if interp == 'tet' else 1e-5}); kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline {res}")
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(err == 0.0 if interp == "tet" else err <= 1e-5,
               f"encode {interp} disagrees: {err}")
         entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     library_ms=None, **b, **res)
+                     library_ms=None, **b)
         if interp == "tet":  # the trainer default
             report["hashgrid_encode"] = entry
         else:
@@ -503,9 +498,7 @@ def compare_kernels(torch, dev, report, baseline=None):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        ms, res = timed(lambda: hg.table_grad_kernel(x, cot, cfg),
-                        baseline and (lambda: baseline.table_grad_fn(
-                            x, cot, cfg)))
+        ms = cuda_ms(lambda: hg.table_grad_kernel(x, cot, cfg))
         plain_ms = cuda_ms(lambda: hg.table_grad_plain(x, cot, cfg), iters=5)
         b = bound(n * 12 + n * cfg.output_dim * 4 + cfg.total_entries * 8,
                   2 * n * cfg.n_levels * cfg.corners * 2)
@@ -513,11 +506,10 @@ def compare_kernels(torch, dev, report, baseline=None):
               f"{n * cfg.n_levels * cfg.corners} contributions into "
               f"{cfg.total_entries} rows: max_abs_err {err}, relative {rel} "
               f"(limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); baseline "
-              f"{res}")
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(rel <= 1e-5, f"table grad {interp} disagrees: {rel}")
         entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     library_ms=None, **b, **res)
+                     library_ms=None, **b)
         if interp == "tet":
             report["hashgrid_encode_bwd"] = entry
             contrib = (x, cot, cfg)
@@ -525,72 +517,99 @@ def compare_kernels(torch, dev, report, baseline=None):
             report["hashgrid_encode_bwd"]["cube"] = entry
         del got, want
 
-    def pairs_f64(i, a, b, entries):
-        return hs.table_grad_pairs_plain(i, a.double(), b.double(), entries)
-
-    # the pair form on the same stream: (entry, w*g0, w*g1), M = 16.8M;
-    # the same limit against the plain sum in float64
+    # K1's stream interface on the same stream: (entry, w*g0, w*g1),
+    # M = 16.8M point-major contributions; the same limit against the
+    # plain sum in float64
     x, cot, cfg = contrib
     idx, w = hg._corner_indices_weights(x, cfg)
     L, C = cfg.n_levels, cfg.corners
-    gl = cot.reshape(n, L, 1, 2)
-    v = (w.reshape(n, L, C, 1) * gl).reshape(-1, 2)
+    v = (w.reshape(n, L, C, 1) * cot.reshape(n, L, 1, 2)).reshape(-1, 2)
     idx = idx.reshape(-1).int()
     v0, v1 = v[:, 0].contiguous(), v[:, 1].contiguous()
-    m, e = idx.shape[0], cfg.total_entries
-    got = hs.table_grad_pairs_kernel(idx, v0, v1, e)
-    want = pairs_f64(idx, v0, v1, e)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    ms = cuda_ms(lambda: hs.table_grad_pairs_kernel(idx, v0, v1, e))
-    plain_ms = cuda_ms(lambda: hs.table_grad_pairs_plain(idx, v0, v1, e))
-    out = torch.zeros((e, 2), device=dev)
-    vals = torch.stack([v0, v1], dim=1)
-    lib_ms = cuda_ms(lambda: out.index_add_(0, idx, vals))
-    b = bound(m * 12 + e * 8, 2 * m)
-    print(f"table grad (pairs): {m} contributions into {e} entries: "
-          f"max_abs_err {err}, relative {rel} (limit 1e-5); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} "
-          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    check(rel <= 1e-5, f"pair table grad disagrees: {rel}")
-    report["table_grad_pairs"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, library_ms=lib_ms,
-                                      **b)
+    del w, v
+    pairs = pairs_and_values(torch, "uniform 2^18-point L16 F2 stream",
+                             idx, v0, v1, cfg.total_entries, baseline)
     # K1's yardstick: index_add_ of its own contribution stream
-    report["hashgrid_encode_bwd"]["library_ms"] = lib_ms
-    del out, vals
+    report["hashgrid_encode_bwd"]["library_ms"] = pairs["library_ms"]
+    report["table_grad_values"] = dict(pairs.pop("values"), stream=pairs)
 
-    # K8's wrapper: the same stream as (row, lane0) of the value layout,
-    # values rounded to bf16; against the wrapper on the plain pairs
-    # summed in float64
+
+def pairs_and_values(torch, label, idx, v0, v1, e, baseline=None):
+    """K1's stream entry (the contributions as (entry, v0, v1), int32
+    entries) and K8's interface (the same contributions as (row, lane0,
+    v0, v1) of the value layout: value id = 2 * entry, int32) against
+    their plain versions summed in float64, limit 1e-5 * max |want|;
+    their times, their plain versions', the bound, and one index_add_
+    of the prepared (entry, [v0, v1]) stream; with a baseline, the other
+    checkout's stream entry and interface in turns. Returns K1's stream
+    entry's report with K8's under "values"."""
+    from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+
+    m = idx.shape[0]
+    live = int(((v0 != 0) | (v1 != 0)).sum())
+    vals = torch.stack([v0, v1], dim=1)
+    acc = torch.zeros((e, 2), device=v0.device)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals))
+    del vals, acc
     flat = idx.long() * 2
     rows, lane0 = (flat >> 7).int(), (flat & 127).int()
     total_values = 2 * e
-    got = hb.sorted_table_grad(rows, lane0, v0, v1, total_values)
-    with mock.patch.object(hs, "table_grad_pairs_kernel", pairs_f64):
-        want = hb.sorted_table_grad(rows, lane0, v0, v1, total_values)
-    with mock.patch.object(hs, "table_grad_pairs_kernel",
-                           hs.table_grad_pairs_plain):
-        plain_ms = cuda_ms(lambda: hb.sorted_table_grad(
-            rows, lane0, v0, v1, total_values))
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    ms = cuda_ms(lambda: hb.sorted_table_grad(rows, lane0, v0, v1,
-                                              total_values))
-    b = bound(m * 16 + total_values * 4, 2 * m)
-    print(f"K8 wrapper (bf16 values, pair kernel): {m} contributions into "
-          f"{total_values} values: max_abs_err {err}, relative {rel} "
-          f"(limit 1e-5); wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    check(rel <= 1e-5, f"K8 wrapper disagrees: {rel}")
+    del flat
+    out = {}
+    for name, kernel, plain, args, n_bytes, old in (
+        ("K1's stream entry", hs.table_grad_pairs_kernel,
+         hs.table_grad_pairs_plain, (idx, v0, v1, e),
+         m * 12 + e * 8, baseline and baseline.pairs_fn),
+        ("K8's interface", hb.table_grad_values_kernel,
+         hb.table_grad_values_plain, (rows, lane0, v0, v1, total_values),
+         m * 16 + total_values * 4, baseline and baseline.values_fn),
+    ):
+        got = kernel(*args)
+        want = plain(*as_f64(args))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        del got, want
+        ms, res = timed(lambda: kernel(*args), old and (lambda: old(*args)))
+        plain_ms = cuda_ms(lambda: plain(*args))
+        b = bound(n_bytes, 2 * live)
+        print(f"{name} on the {label}: {m} contributions ({live} nonzero) "
+              f"into {e} entries: max_abs_err {err}, relative {rel} (limit "
+              f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"index_add_ of the prepared stream {lib_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline {res}")
+        check(rel <= 1e-5, f"{name} on the {label} disagrees: {rel}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, contributions=m,
+                         nonzero_contributions=live, **b, **res)
+    return dict(out["K1's stream entry"], values=out["K8's interface"])
 
 
 def as_f64(args):
     """args with every floating tensor in float64."""
     return [a.double() if hasattr(a, "is_floating_point")
             and a.is_floating_point() else a for a in args]
+
+
+def knots_faces_ties(torch, cfg, g, dev):
+    """Points where the cell math's branches decide, a few per row: the
+    grid knots of every level (pos = x * scale + 0.5 an integer: frac 0
+    on every axis, all three ranks tied), the upper faces (x = 1 on some
+    axes: the cell clips to n_axis - 1 and frac to 1) and exact ties of
+    two or three coordinates (fx == fy, fx == fz, fy == fz, all three)
+    at every level. tests/test_torch_kernels.py uses it too."""
+    knots = [((torch.randint(1, r, (64, 3), generator=g, device=dev)
+               .double() - 0.5) / s).float()
+             for s, r in zip(cfg.level_scales, cfg.level_resolutions)]
+    faces = torch.rand((96, 3), generator=g, device=dev)
+    faces[torch.arange(96), torch.arange(96) % 3] = 1.0
+    faces[::4] = 1.0
+    a = torch.rand((32, 1), generator=g, device=dev)
+    b = torch.rand((32, 1), generator=g, device=dev)
+    ties = torch.cat([torch.cat([a, a, b], 1), torch.cat([a, b, a], 1),
+                      torch.cat([b, a, a], 1), torch.cat([a, a, a], 1)])
+    return torch.cat([*knots, faces, ties]).contiguous()
 
 
 def compare_cell_kernels(torch, dev, report, baseline=None):
@@ -601,14 +620,16 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
     K7 fused from (x, g) and from its stream; K5 fused from (x, g), tet
     and cube with f32 products and tet with bf16sim, beside the route it
     replaced (the [M, 8F] rows built by _cell_indices_weights, then K5's
-    stream entry), and K5's stream entry alone; K6 on the pair stream of
-    the same points; K7 and K5 (tet f32) also on the L16 F2 cell grid
-    (E = 903,456, M = 16.8M). Reference: the plain version summed in
-    float64 on the same inputs, limit 1e-5 * max |want| (the atomics add
-    in a varying order). library_ms: one index_add_ of the prepared
-    [M, 8F] f32 contribution rows into [E, 8F]. With a baseline, its
-    kernels are timed in turns beside this checkout's: K7's two entries
-    on the same inputs, and its K5 route beside the fused K5."""
+    stream entry), and K5's stream entry alone; K6 fused from (x, g),
+    beside the route it replaced (the lo/hi pair streams, then K6's
+    stream entry), and K6's stream entry alone, and K6 fused on grid
+    knots, upper faces and rank ties; K7 and K5 (tet f32) also on the
+    L16 F2 cell grid (E = 903,456, M = 16.8M). Reference: the plain
+    version summed in float64 on the same inputs, limit 1e-5 * max
+    |want| (the atomics add in a varying order). library_ms: one
+    index_add_ of the prepared [M, 8F] f32 contribution rows into
+    [E, 8F]. With a baseline, its K6 route is timed in turns beside the
+    fused K6."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
@@ -656,25 +677,17 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             acc.index_add_(0, stream[0], rows)
 
         out_bytes = e * 8 * F * 4
-        old_fused = old_stream = None
-        if baseline is not None:
-            def old_fused():
-                return baseline.factor_x_fn(x, cot, cfg)
-
-            def old_stream():
-                return baseline.factor_fn(*stream)
         # fused: x, g and the output once; the stream entry: idx int64,
         # wk, s1, s2 int32, g and the output; a multiply and an add for
         # each of the 4 x F products
         fused = run(f"cell factor grad (K7 fused) L{L} F{F}",
                     hg.tet_factor_grad_x_kernel, hg.tet_factor_grad_x_plain,
                     (x, cot, cfg), e, lib, n * 12 + m * F * 4 + out_bytes,
-                    m * 8 * F, old_fused)
+                    m * 8 * F)
         fused["stream"] = run(
             f"cell factor grad (K7 stream entry) L{L} F{F}",
             hs.tet_factor_grad_kernel, hs.tet_factor_grad_plain, stream,
-            e, lib, m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F,
-            old_stream)
+            e, lib, m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F)
         results[F] = fused
         del rows, acc, stream
 
@@ -696,8 +709,7 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             entry = run(
                 label, hg.cell_row_grad_x_kernel, hg.cell_row_grad_x_plain,
                 (x, cot, rcfg), e, lambda: acc.index_add_(0, ridx, vals),
-                n * 12 + m * F * 4 + out_bytes, m * 2 * corners * F,
-                baseline and (lambda: baseline.rows_route_fn(x, cot, rcfg)))
+                n * 12 + m * F * 4 + out_bytes, m * 2 * corners * F)
             # the route it replaced, with this checkout's stream entry
             entry["route_ms"] = cuda_ms(
                 lambda: rows_route(x, cot, rcfg, hs.row_grad_kernel), iters=5)
@@ -714,19 +726,53 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             rows_x[(interp, payload, F)] = entry
             del ridx, vals, acc
         if F == 4:
-            idx, w8 = hg._cell_indices_weights(x, cfg)
+            pcfg = dataclasses.replace(cfg, grad_payload="bf16pair")
+            idx, w8 = hg._cell_indices_weights(x, pcfg)
             idx, w8 = idx.reshape(-1), w8.reshape(m, 8, 1)
-            cot = cot.reshape(m, F)
-            lo = (w8 * cot[:, None, 0::2]).reshape(m, 4 * F)
-            hi = (w8 * cot[:, None, 1::2]).reshape(m, 4 * F)
+            cot2 = cot.reshape(m, F)
+            lo = (w8 * cot2[:, None, 0::2]).reshape(m, 4 * F)
+            hi = (w8 * cot2[:, None, 1::2]).reshape(m, 4 * F)
+            del w8, cot2
             prows = hs.pair_rows(lo, hi)
             acc = torch.zeros((e, 8 * F), device=dev)
-            report["cell_pair_grad"] = run(
-                f"cell pair grad (K6) L{L} F{F}", hs.pair_grad_kernel,
-                hs.pair_grad_plain, (idx, lo, hi, e), e,
-                lambda: acc.index_add_(0, idx, prows),
-                m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F)
-            del lo, hi, prows, w8, idx, acc
+
+            def lib():
+                acc.index_add_(0, idx, prows)
+
+            label = f"cell pair grad (K6 fused) tet L{L} F{F}"
+            entry = run(
+                label, hg.cell_pair_grad_x_kernel, hg.cell_pair_grad_x_plain,
+                (x, cot, pcfg), e, lib, n * 12 + m * F * 4 + out_bytes,
+                m * 2 * 4 * F,
+                baseline and (lambda: baseline.pair_route_fn(x, cot, pcfg)))
+            entry["route_ms"] = cuda_ms(
+                lambda: pair_route(x, cot, pcfg, hs.pair_grad_kernel),
+                iters=5)
+            print(f"{label}: the route it replaced (_cell_indices_weights, "
+                  f"the lo/hi streams, K6's stream entry) "
+                  f"{entry['route_ms']:.4f} ms")
+            # K6's stream entry alone, on the same pair streams
+            entry["stream"] = run(
+                f"cell pair grad (K6 stream entry) L{L} F{F}",
+                hs.pair_grad_kernel, hs.pair_grad_plain, (idx, lo, hi, e),
+                e, lib, m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F)
+            del lo, hi, prows, idx, acc
+            # the in-kernel cell math where it branches, few points a row
+            edges = knots_faces_ties(torch, pcfg, g, dev)
+            ecot = torch.randn((edges.shape[0], L * F), generator=g,
+                               device=dev)
+            got = hg.cell_pair_grad_x_kernel(edges, ecot, pcfg)
+            want = hg.cell_pair_grad_x_plain(edges, ecot.double(), pcfg)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            print(f"{label} on {edges.shape[0]} grid knots, upper-face "
+                  f"points and rank ties: max_abs_err {err}, relative {rel} "
+                  f"(limit 1e-5)")
+            check(rel <= 1e-5, f"{label} on knots and faces disagrees: {rel}")
+            entry["edges_max_abs_err"] = err
+            report["cell_pair_grad_x"] = entry
+            del edges, ecot, got, want
         del cot
     report["cell_factor_grad"] = dict(results[4], at_f2=results[2])
     report["cell_row_grad_x"] = dict(
@@ -773,6 +819,7 @@ def plain_path():
         (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain),
         (hg, "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain),
         (hg, "cell_row_grad_x_kernel", hg.cell_row_grad_x_plain),
+        (hg, "cell_pair_grad_x_kernel", hg.cell_pair_grad_x_plain),
     ):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
@@ -914,9 +961,10 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
     run; `table_grad` names the table-gradient kernel whose output
     compare_step holds against a float64 sum. The arguments of the
     encode and of its table gradient (corner layout) and of the fused
-    cell table gradients (K7, K5) in one training step land in
-    captured["train_step"], ["corner_grad_step"], ["cell_step"] and
-    ["cell_f32_step"]. Returns (launches, training steps)."""
+    cell table gradients (K7, K5, K6) in one training step land in
+    captured["train_step"], ["corner_grad_step"], ["cell_step"],
+    ["cell_f32_step"] and ["cell_bf16pair_step"]. Returns (launches,
+    training steps)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Trainer
 
@@ -981,7 +1029,9 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
     with capture(hg, "encode_kernel", captured, "train_step"), \
             capture(hg, "table_grad_kernel", captured, "corner_grad_step"), \
             capture(hg, "tet_factor_grad_x_kernel", captured, "cell_step"), \
-            capture(hg, "cell_row_grad_x_kernel", captured, "cell_f32_step"):
+            capture(hg, "cell_row_grad_x_kernel", captured, "cell_f32_step"), \
+            capture(hg, "cell_pair_grad_x_kernel", captured,
+                    "cell_bf16pair_step"):
         step_grads(torch, trainer, batch)
     for dtype in ("float32", "bfloat16"):
         compare_step(torch, trainer, kernels, batch, dtype, table_grad)
@@ -1143,21 +1193,23 @@ def profile_steps(torch, step, card, n_steps=10, label="step"):
 
 
 def time_captured(torch, report, captured, card, baseline=None):
-    """Phase 6: K2, K1, K7 and K5 on the inputs that the main paths gave
-    them (captured in phases 3-5), against their plain versions, with
-    the bound of these inputs; with a baseline, its kernels in turns
-    beside (for K5 its backward route: the stream built from x, then its
-    stream entry). K2 runs on the eval chunk's slots, on its valid
-    samples alone (the padding after them sits at one position) and on
-    the corner step's slots, each tet (as the paths run it) and cube (the
-    same table and positions); K1 on the corner step's positions and
-    cotangent, tet and cube; K7 and K5 on one step of their cell paths.
+    """Phase 6: K2, K1, K5, K6, K7 and K8 on the inputs that the main
+    paths gave them (captured in phases 3-5), against their plain
+    versions, with the bound of these inputs; with a baseline, its K8
+    interface, K1 stream entry and K6 route in turns beside. K2 runs on
+    the eval chunk's slots, on its valid samples alone (the padding
+    after them sits at one position) and on the corner step's slots,
+    each tet (as the paths run it) and cube (the same table and
+    positions); K1 on the corner step's positions and cotangent, tet and
+    cube; K8 and K1's stream entry on that step's contributions in ray
+    order (level by level, corner by corner, then the samples as the
+    march laid them out); K7, K5 and K6 on one step of their cell paths.
     Adds report[...]["captured"]."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
     for key in ("eval_chunk", "train_step", "corner_grad_step", "cell_step",
-                "cell_f32_step"):
+                "cell_f32_step", "cell_bf16pair_step"):
         check(key in captured, f"no kernel call captured in {key}")
     table, x, cfg = captured["eval_chunk"]
     inputs = {"eval_chunk": (table, x, cfg),
@@ -1174,20 +1226,17 @@ def time_captured(torch, report, captured, card, baseline=None):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             del got, want
-            ms, res = timed(lambda: hg.encode_kernel(table, x, cfg),
-                            baseline and (lambda: baseline.encode_fn(
-                                table, x, cfg)))
+            ms = cuda_ms(lambda: hg.encode_kernel(table, x, cfg))
             plain_ms = cuda_ms(lambda: hg.encode_plain(table, x, cfg),
                                iters=5)
             b = encode_bound(torch, x, cfg)
             entry.setdefault("captured", {})[path] = dict(
                 points=x.shape[0], distinct_points=distinct,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, **res)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
             print(f"encode {interp} on the {path} positions ({x.shape[0]} "
                   f"points, {distinct} distinct): max_abs_err {err}; "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); baseline "
-                  f"{res} [{card}]")
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
             check(err == 0.0 if interp == "tet" else err <= 1e-5,
                   f"encode {interp} on the {path} positions disagrees: "
                   f"{err}")
@@ -1227,27 +1276,53 @@ def time_captured(torch, report, captured, card, baseline=None):
         entry["captured"] = {"train_step": table_grad(
             f"table grad (K1 fused) {interp} on one corner step's x and g",
             hg.table_grad_kernel, hg.table_grad_plain, x, g, cfg,
-            cfg.total_entries * cfg.n_features * 4, cfg.corners,
-            baseline and baseline.table_grad_fn)}
+            cfg.total_entries * cfg.n_features * 4, cfg.corners)}
+    # K8 and K1's stream entry on the same step's contributions, ordered
+    # (level, corner, sample): neighbouring samples of a ray share the
+    # rows of the coarse levels, so lanes merge as in K1
+    idx, w = hg._corner_indices_weights(x, path_cfg)
+    n, L, C = x.shape[0], path_cfg.n_levels, path_cfg.corners
+    v = (w.reshape(n, L, C, 1) * g.reshape(n, L, 1, 2))
+    idx = idx.reshape(n, L, C).permute(1, 2, 0).reshape(-1).int()
+    v = v.permute(1, 2, 0, 3).reshape(-1, 2)
+    v0, v1 = v[:, 0].contiguous(), v[:, 1].contiguous()
+    del w, v
+    pairs = pairs_and_values(torch, "corner step's ray-ordered stream", idx,
+                             v0, v1, path_cfg.total_entries, baseline)
+    report["table_grad_values"]["captured"] = {
+        "train_step": pairs.pop("values")}
+    report["table_grad_values"]["stream"]["captured"] = {
+        "train_step": pairs}
+    del idx, v0, v1
 
     x, g, cfg = captured["cell_step"]
     report["cell_factor_grad"]["captured"] = {"cell_step": table_grad(
         "cell factor grad (K7 fused) on one cell step's x and g",
         hg.tet_factor_grad_x_kernel, hg.tet_factor_grad_x_plain, x, g, cfg,
-        cfg.total_entries * cfg.row_width * 4, 4,
-        baseline and baseline.factor_x_fn)}
+        cfg.total_entries * cfg.row_width * 4, 4)}
 
     x, g, cfg = captured["cell_f32_step"]
     entry = table_grad(
         "cell row grad (K5 fused) on one f32 cell step's x and g",
         hg.cell_row_grad_x_kernel, hg.cell_row_grad_x_plain, x, g, cfg,
-        cfg.total_entries * cfg.row_width * 4, cfg.corners,
-        baseline and baseline.rows_route_fn)
+        cfg.total_entries * cfg.row_width * 4, cfg.corners)
     entry["route_ms"] = cuda_ms(
         lambda: rows_route(x, g, cfg, hs.row_grad_kernel), iters=5)
     print(f"cell row grad (K5) on the same inputs, the route it replaced: "
           f"{entry['route_ms']:.4f} ms [{card}]")
     report["cell_row_grad_x"]["captured"] = {"cell_f32_step": entry}
+
+    x, g, cfg = captured["cell_bf16pair_step"]
+    entry = table_grad(
+        "cell pair grad (K6 fused) on one bf16pair cell step's x and g",
+        hg.cell_pair_grad_x_kernel, hg.cell_pair_grad_x_plain, x, g, cfg,
+        cfg.total_entries * cfg.row_width * 4, cfg.corners,
+        baseline and baseline.pair_route_fn)
+    entry["route_ms"] = cuda_ms(
+        lambda: pair_route(x, g, cfg, hs.pair_grad_kernel), iters=5)
+    print(f"cell pair grad (K6) on the same inputs, the route it replaced: "
+          f"{entry['route_ms']:.4f} ms [{card}]")
+    report["cell_pair_grad_x"]["captured"] = {"cell_bf16pair_step": entry}
 
 
 def main() -> int:
@@ -1264,6 +1339,7 @@ def main() -> int:
 
     from quadraturefields_tpu_torch._cuda import build
     from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
 
@@ -1271,15 +1347,18 @@ def main() -> int:
     profile = "--profile" in args
     baseline = (Baseline(args[args.index("--baseline") + 1])
                 if "--baseline" in args else None)
-    # the eight kernels of the JSON line (K5 and K7 are their fused
-    # entries); their stream entries are counted too, and must stay off
-    # the paths
+    # the eight kernels of the JSON line (K5, K6 and K7 are their fused
+    # entries, K8 its one-launch interface); their stream entries are
+    # counted too (K8's: K1's stream interface on K8's kernel), and must
+    # stay off the paths
     kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
-               hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL,
-               hg.CELL_ROW_GRAD_X_KERNEL, hs.CELL_PAIR_GRAD_KERNEL,
+               hg.ENCODE_BWD_KERNEL, hb.TABLE_GRAD_VALUES_KERNEL,
+               hg.CELL_ROW_GRAD_X_KERNEL, hg.CELL_PAIR_GRAD_X_KERNEL,
                hg.CELL_FACTOR_GRAD_X_KERNEL]
     streams = {"cell_row_grad_x": hs.CELL_ROW_GRAD_KERNEL,
-               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL}
+               "cell_pair_grad_x": hs.CELL_PAIR_GRAD_KERNEL,
+               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL,
+               "table_grad_values": hs.TABLE_GRAD_PAIRS_KERNEL}
     counted = kernels + list(streams.values())
     libraries = sorted({k.library for k in counted})
     jobs = [partial(build, lib) for lib in libraries]
@@ -1327,35 +1406,40 @@ def main() -> int:
         reg_type="occ", occ_thres=0.01, **common)
     print(f"cell model: {cell_cfg.ngp_config()}, "
           f"{cell_cfg.ngp_config().hashgrid.total_entries} rows")
-    cell_launches, n_steps = train_slice(
-        torch, counted, card, views, "train_cell", cell_cfg,
-        ("occ_bits", "segment_sum", "cell_factor_grad"),
-        (hg, "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain),
-        captured, profile)
-    check(cell_launches["cell_factor_grad"] == n_steps,
-          f"K7 launched {cell_launches['cell_factor_grad']} times in "
-          f"{n_steps} steps")
-    check(all(cell_launches[k] == 0 for k in (
-        "cell_row_grad_x", "cell_row_grad", "cell_pair_grad",
-        "cell_factor_grad_stream")),
-          "the cell training path launched K5, K6 or K7's stream entry")
-    # the same configuration with the CLI's default table gradient for
-    # --layout cell (--grad_payload f32): the rows route, K5 fused
-    f32_cfg = dataclasses.replace(
-        cell_cfg, root=tempfile.mkdtemp(prefix="qf_smoke_"),
-        grad_payload="f32")
-    f32_launches, n_f32 = train_slice(
-        torch, counted, card, views, "train_cell_f32", f32_cfg,
-        ("occ_bits", "segment_sum", "cell_row_grad_x"),
-        (hg, "cell_row_grad_x_kernel", hg.cell_row_grad_x_plain),
-        captured, profile)
-    check(f32_launches["cell_row_grad_x"] == n_f32,
-          f"K5 launched {f32_launches['cell_row_grad_x']} times in "
-          f"{n_f32} steps")
-    check(all(f32_launches[k] == 0 for k in (
-        "cell_row_grad", "cell_pair_grad", "cell_factor_grad",
-        "cell_factor_grad_stream")),
-          "the f32 cell training path launched K5's stream entry, K6 or K7")
+    cell_grads = [k.name for k in counted if k.library in
+                  ("cell_table_grad", "cell_factor_grad")]
+
+    def cell_path(name, payload, kernel, fn, plain):
+        """The cell configuration with `payload`: the path `name` must
+        launch the fused cell table gradient `kernel` once a step and
+        every other cell table gradient never."""
+        cfg = dataclasses.replace(
+            cell_cfg, root=tempfile.mkdtemp(prefix="qf_smoke_"),
+            grad_payload=payload)
+        launches, n_steps = train_slice(
+            torch, counted, card, views, name, cfg,
+            ("occ_bits", "segment_sum", kernel.name), (hg, fn, plain),
+            captured, profile)
+        check(launches[kernel.name] == n_steps,
+              f"{kernel.name} launched {launches[kernel.name]} times in "
+              f"{n_steps} steps of {name}")
+        others = {k: launches[k] for k in cell_grads if k != kernel.name}
+        check(not any(others.values()),
+              f"{name} launched another cell table gradient: {others}")
+        return launches
+
+    cell_launches = cell_path(
+        "train_cell", "bf16factor", hg.CELL_FACTOR_GRAD_X_KERNEL,
+        "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain)
+    # the CLI's default table gradient for --layout cell (--grad_payload
+    # f32): the rows route, K5 fused
+    f32_launches = cell_path(
+        "train_cell_f32", "f32", hg.CELL_ROW_GRAD_X_KERNEL,
+        "cell_row_grad_x_kernel", hg.cell_row_grad_x_plain)
+    # --grad_payload bf16pair: the pair route, K6 fused
+    pair_launches = cell_path(
+        "train_cell_bf16pair", "bf16pair", hg.CELL_PAIR_GRAD_X_KERNEL,
+        "cell_pair_grad_x_kernel", hg.cell_pair_grad_x_plain)
 
     time_captured(torch, report, captured, card, baseline)
 
@@ -1365,7 +1449,8 @@ def main() -> int:
     check(not ref, f"the port imported the JAX package: {ref}")
 
     paths = {"eval": eval_launches, "train": train_launches,
-             "train_cell": cell_launches, "train_cell_f32": f32_launches}
+             "train_cell": cell_launches, "train_cell_f32": f32_launches,
+             "train_cell_bf16pair": pair_launches}
     for name, stream in streams.items():
         report[name]["stream"]["launches_by_path"] = {
             p: n[stream.name] for p, n in paths.items()}

@@ -24,13 +24,23 @@
 // F4: 12.6 + 134 + 56 MB, ~61 us at 3.35 TB/s); the stream it replaces
 // was 1.07 GB, written by PyTorch and read back here.
 //
+// K6 has two entries too. qf_cell_pair_grad_x is the cell encode's
+// backward on the bf16pair route (ops/hashgrid.py cell_pair_grad_x). K6's
+// lo/hi pairs carry the products w[c] * g[2p] and w[c] * g[2p + 1] of
+// corner c, each rounded to bf16, into columns c*F + 2p and c*F + 2p + 1:
+// the rows of K5's bf16sim payload, column for column. So the entry runs
+// K5's fused core with the bf16-rounded product (Payload::kBf16Sim) and
+// builds none of the [N*L, 4F] lo and hi streams that the route built in
+// PyTorch before (2 x 537 MB at 2^20 points, L8 F4). Its bound and its
+// limit are K5's: the same float4 atomics into [E, 8F].
+//
 // qf_cell_row_grad (K5's stream, JAX's interface) and qf_cell_pair_grad
-// (K6): Hopper runs blocks in no order, so nothing is sorted: each thread
-// adds its part of one contribution into the gradient with one 16-byte
-// float4 atomicAdd (native on sm_90, global memory). Entries outside
-// [0, E) are skipped, and so are atomics whose values are all zero (the
-// renderer's padded samples carry zero cotangents; adding zeros changes
-// no sum). The order of the sums varies from run to run. What bounds
+// (K6's stream, JAX's interface): Hopper runs blocks in no order, so
+// nothing is sorted: each thread adds its part of one contribution into
+// the gradient with one 16-byte float4 atomicAdd (native on sm_90,
+// global memory). Entries outside [0, E) are skipped, and so are atomics
+// whose values are all zero (the renderer's padded samples carry zero
+// cotangents; adding zeros changes no sum). The order of the sums varies from run to run. What bounds
 // them on an H100: bytes, then the atomics. Reading the stream once
 // (with int64 entries, 8 + 128 B a contribution at F = 4) and writing
 // [E, 8F]; at the stage-1 cell scale (M = 8.4M contributions into
@@ -186,5 +196,31 @@ QF_EXPORT int qf_cell_row_grad_x(const float* x, const float* g, float* out,
     err = launch_cell_grad_x<false, Payload::kF32>(
         x, g, out, n, n_levels, f, lv, n_entries, s);
   }
+  return static_cast<int>(err);
+}
+
+// K6 fused from positions (the cell encode's backward on the bf16pair
+// route): the arguments of qf_cell_row_grad_x without the payload flag;
+// every product is rounded to bf16. F in {2, 4, 8, 16} (K6 takes feature
+// pairs: F even).
+QF_EXPORT int qf_cell_pair_grad_x(const float* x, const float* g, float* out,
+                                  long long n, int n_levels, int n_features,
+                                  const float* scales, const int* n_axis,
+                                  const long long* sizes,
+                                  const long long* offsets,
+                                  long long n_entries, int tet,
+                                  void* stream) {
+  Levels lv;
+  if (n < 0 || n_entries <= 0 || n_entries > kMaxCellEntries ||
+      !make_levels(n_levels, scales, n_axis, sizes, offsets, &lv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      tet ? launch_cell_grad_x<true, Payload::kBf16Sim>(
+                x, g, out, n, n_levels, n_features, lv, n_entries, s)
+          : launch_cell_grad_x<false, Payload::kBf16Sim>(
+                x, g, out, n, n_levels, n_features, lv, n_entries, s);
   return static_cast<int>(err);
 }

@@ -22,11 +22,11 @@ for it either). The table gradient follows JAX's `_cell_bwd` routing
 (`_cell_grad_route`) onto one of three segment sums: K7
 (`tet_factor_grad_x`: the fused entry of csrc/cell_factor_grad.cu,
 which computes each (point, level)'s cell row and Kuhn weights from x
-itself), K6 (`sorted_pair_grad` of hashgrid_sorted.py) or K5
-(`cell_row_grad_x`: the fused entry of csrc/cell_table_grad.cu, from x
-as K7's, for F in CELL_GRAD_X_FEATURES; other F take K5's stream
-entry, `sorted_row_grad`), each a CUDA kernel on the card and its plain
-version on the CPU.
+itself), K6 (`cell_pair_grad_x`) or K5 (`cell_row_grad_x`), the fused
+entries of csrc/cell_table_grad.cu, from x as K7's, for F in
+CELL_GRAD_X_FEATURES (other F take K6's and K5's stream entries,
+`sorted_pair_grad` and `sorted_row_grad`), each a CUDA kernel on the
+card and its plain version on the CPU.
 The position gradient is taken by autograd through the weights. One
 known difference from JAX, on a set of measure zero: the weights clip
 the cell fraction to [0, 1], and at a tie (frac exactly 0 or 1, i.e. x
@@ -552,17 +552,14 @@ CELL_ROW_GRAD_X_KERNEL = CudaKernel(
 )
 
 
-def cell_row_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
-                          cfg: HashGridConfig) -> torch.Tensor:
-    """K5's function from positions: the cell table gradient [E, 8F] of
-    x [N, 3] and the cotangent g [N, L*F] on the rows route, level by
-    level: each level's cell rows and 8 dense weights (_cell_levels,
-    _cell_w8), its [N, 8F] contribution rows w8[c] * g[f] at column
-    c*F + f, rounded to bf16 for the "bf16sim" payload, and one
-    index_add_. The same sums, in the same order per row, as the stream
-    route (_cell_indices_weights, the [N*L, 8F] rows, sorted_row_grad;
-    levels own disjoint rows). The products are taken in f32, as the
-    kernel takes them, and summed in f32 (f64 for f64 g, a reference
+def _cell_rows_plain(x: torch.Tensor, g: torch.Tensor,
+                     cfg: HashGridConfig, bf16: bool) -> torch.Tensor:
+    """The cell table gradient [E, 8F] of x [N, 3] and the cotangent g
+    [N, L*F] from f32 contribution rows, level by level: each level's
+    cell rows and 8 dense weights (_cell_levels, _cell_w8), its [N, 8F]
+    rows w8[c] * g[f] at column c*F + f, each rounded to bf16 when
+    `bf16`, and one index_add_. The products are taken in f32, as the
+    kernels take them, and summed in f32 (f64 for f64 g, a reference
     sum; its values are f32's)."""
     n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
     dtype = torch.promote_types(g.dtype, torch.float32)
@@ -571,10 +568,21 @@ def cell_row_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
     g3 = g.to(torch.float32).reshape(n, L, 1, F)
     for l, (idx, frac) in enumerate(_cell_levels(x, cfg)):
         rows = (_cell_w8(frac, cfg)[:, :, None] * g3[:, l]).reshape(n, 8 * F)
-        if cfg.grad_payload == "bf16sim":
+        if bf16:
             rows = rows.to(torch.bfloat16).to(torch.float32)
         out.index_add_(0, idx, rows.to(dtype))
     return out
+
+
+def cell_row_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
+                          cfg: HashGridConfig) -> torch.Tensor:
+    """K5's function from positions: the cell table gradient [E, 8F] of
+    x [N, 3] and the cotangent g [N, L*F] on the rows route, the rows
+    rounded to bf16 for the "bf16sim" payload (_cell_rows_plain). The
+    same sums, in the same order per row, as the stream route
+    (_cell_indices_weights, the [N*L, 8F] rows, sorted_row_grad; levels
+    own disjoint rows)."""
+    return _cell_rows_plain(x, g, cfg, cfg.grad_payload == "bf16sim")
 
 
 def cell_row_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
@@ -596,6 +604,50 @@ def cell_row_grad_x(x: torch.Tensor, g: torch.Tensor,
     if x.device.type == "cpu":
         return cell_row_grad_x_plain(x, g, cfg)
     return cell_row_grad_x_kernel(x, g, cfg)
+
+
+CELL_PAIR_GRAD_X_KERNEL = CudaKernel(
+    "cell_pair_grad_x",
+    "qf_cell_pair_grad_x",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int],
+    replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:238",
+    library="cell_table_grad",
+)
+
+
+def cell_pair_grad_x_plain(x: torch.Tensor, g: torch.Tensor,
+                           cfg: HashGridConfig) -> torch.Tensor:
+    """K6's function from positions: the cell table gradient [E, 8F] of
+    x [N, 3] and the cotangent g [N, L*F] on the bf16pair route. K6's
+    lo/hi pair lane c*F/2 + p carries bf16(w8[c] * g[2p]) and
+    bf16(w8[c] * g[2p + 1]) into columns c*F + 2p and c*F + 2p + 1, so
+    these are the rows of K5's bf16sim payload (_cell_rows_plain with
+    every product rounded to bf16), whatever cfg.grad_payload says. The
+    same sums, in the same order per row, as the lo/hi stream route
+    (_cell_indices_weights, then sorted_pair_grad)."""
+    return _cell_rows_plain(x, g, cfg, bf16=True)
+
+
+def cell_pair_grad_x_kernel(x: torch.Tensor, g: torch.Tensor,
+                            cfg: HashGridConfig) -> torch.Tensor:
+    """Launch K6's fused entry (csrc/cell_table_grad.cu) on CUDA tensors
+    x [N, 3] f32 and g [N, L*F] f32, F in CELL_GRAD_X_FEATURES -> [E, 8F]
+    f32; tet or cube weights by cfg.interp, every product rounded to
+    bf16."""
+    return launch_cell_grad_x(CELL_PAIR_GRAD_X_KERNEL, x, g, cfg,
+                              int(cfg.interp == "tet"))
+
+
+def cell_pair_grad_x(x: torch.Tensor, g: torch.Tensor,
+                     cfg: HashGridConfig) -> torch.Tensor:
+    """The cell table gradient on K6's route from positions x [N, 3] and
+    the cotangent g [N, L*F] f32: the fused kernel for CUDA tensors, its
+    plain version on the CPU."""
+    if x.device.type == "cpu":
+        return cell_pair_grad_x_plain(x, g, cfg)
+    return cell_pair_grad_x_kernel(x, g, cfg)
 
 
 def encode_cell_plain(table: torch.Tensor, x: torch.Tensor,
@@ -639,17 +691,19 @@ def _cell_grad_route(cfg: HashGridConfig, n: int, on_card: bool) -> str:
 def _cell_table_grad(x, g, cfg: HashGridConfig):
     """The cell table gradient [E, 8F] f32 of clamped x [N, 3] and the
     output's cotangent g [N, L*F] f32, on the route of
-    _cell_grad_route. The rows route is K5's fused entry for F in
-    CELL_GRAD_X_FEATURES and K5's stream entry for any other F; the
-    stream's contributions are point-major (n, l)."""
+    _cell_grad_route. The rows and pair routes take K5's and K6's fused
+    entries for F in CELL_GRAD_X_FEATURES and their stream entries for
+    any other F; the streams' contributions are point-major (n, l)."""
     n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
     E = cfg.total_entries
     g2 = g.reshape(n * L, F)
     route = _cell_grad_route(cfg, n, on_card=x.device.type == "cuda")
     if route == "factor":
         return tet_factor_grad_x(x, g, cfg)
-    if route == "rows" and F in CELL_GRAD_X_FEATURES:
-        return cell_row_grad_x(x, g, cfg)
+    if F in CELL_GRAD_X_FEATURES:
+        if route == "rows":
+            return cell_row_grad_x(x, g, cfg)
+        return cell_pair_grad_x(x, g, cfg)
     idx, w8 = _cell_indices_weights(x, cfg)
     w8 = w8.reshape(n * L, 8, 1)
     if route == "pair":

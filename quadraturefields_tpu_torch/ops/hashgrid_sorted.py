@@ -8,10 +8,12 @@ Port of quadraturefields_tpu/ops/hashgrid_sorted.py:
   accumulate_along_rays. The card runs csrc/segment_sum.cu, the CPU
   `segment_sum_plain` (the JAX CPU branch's segment_sum).
 - `sorted_table_grad`, K1's interface: M contributions summed into
-  [E, 2]. The card runs csrc/table_grad.cu (one float2 atomic per
-  contribution, no sort), the CPU `table_grad_pairs_plain` (one
-  index_add_). The encode's own backward does not go through it: the
-  fused kernel of csrc/hashgrid_encode.cu never builds the stream.
+  [E, 2]. The card runs csrc/table_grad.cu's `qf_table_grad_pairs`
+  (one float2 atomic per contribution, lanes of equal neighbouring
+  entries merged, no sort; K8's entry on the same kernel), the CPU
+  `table_grad_pairs_plain` (one index_add_). The encode's own
+  backward does not go through it: the fused kernel of
+  csrc/hashgrid_encode.cu never builds the stream.
 - The cell-layout table gradients, M contributions summed into
   [E, 8F] rows (row slot c*F + f = corner c, feature f), one function
   with three input forms: `sorted_row_grad` (K5, f32 rows [M, 8F]),
@@ -133,7 +135,7 @@ TABLE_GRAD_PAIRS_KERNEL = CudaKernel(
     "qf_table_grad_pairs",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong],
-    replaces="quadraturefields_tpu/ops/hashgrid_backward.py:52",
+    replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:54",
     library="table_grad",
 )
 

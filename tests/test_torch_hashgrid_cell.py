@@ -1,10 +1,10 @@
 """The port's cell-layout hash grid against the JAX package's, on the same
 seeded numpy inputs: the cell indices and weights, the encode, the three
 segment sums of the table gradient (K5 sorted_row_grad, K6
-sorted_pair_grad, K7 sorted_tet_factor_grad), K5 and K7 from positions
-(cell_row_grad_x, tet_factor_grad_x), the encode's VJP on every route of
-`_cell_bwd`, the route rule itself, one stage-1 training step,
-the CLI with run_nerfsynthetic_tpu_fast.sh's flags, save / load and
+sorted_pair_grad, K7 sorted_tet_factor_grad), K5, K6 and K7 from
+positions (cell_row_grad_x, cell_pair_grad_x, tet_factor_grad_x), the
+encode's VJP on every route of `_cell_bwd`, the route rule itself, one
+stage-1 training step, the CLI with run_nerfsynthetic_tpu_fast.sh's flags, save / load and
 params_from_jax. JAX runs on the CPU, K5 and K6 in Pallas interpret
 mode and K7 through its CPU reference, as its own tests run them; the
 port runs each kernel's plain PyTorch version."""
@@ -349,6 +349,107 @@ def test_cell_backward_rows_route_builds_no_stream(interp, monkeypatch):
     calls = []
     fused = thg.cell_row_grad_x
     monkeypatch.setattr(thg, "cell_row_grad_x",
+                        lambda *a: calls.append(a) or fused(*a))
+    (got,) = torch.autograd.grad(out, table, g)
+    assert len(calls) == 1
+    assert torch.equal(got, want)
+
+
+def _stream_pair_route(x, g, cfg):
+    """K6's stream route: the [N*L, 4F] lo and hi pair streams of
+    _cell_indices_weights (lane c*F/2 + p: w8[c] * g[2p] and
+    w8[c] * g[2p + 1]), then sorted_pair_grad."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    idx, w8 = thg._cell_indices_weights(x, cfg)
+    w8, g2 = w8.reshape(n * L, 8, 1), g.reshape(n * L, F)
+    lo = (w8 * g2[:, None, 0::2]).reshape(n * L, 4 * F)
+    hi = (w8 * g2[:, None, 1::2]).reshape(n * L, 4 * F)
+    return ths.sorted_pair_grad(idx.reshape(-1), lo, hi, cfg.total_entries)
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+@pytest.mark.parametrize("n_features", [2, 4, 8])
+def test_cell_pair_grad_x_plain_equals_stream_route(interp, n_features):
+    """K6's plain version from positions, level by level, against the
+    lo/hi stream route it replaces in the backward
+    (_cell_indices_weights, the pair streams, sorted_pair_grad's plain
+    version): bit for bit, on random points, grid knots and upper faces,
+    with zero cotangent rows among them."""
+    _, tcfg = _cfgs(interp=interp, n_features=n_features,
+                    grad_mode="sorted", grad_payload="bf16pair")
+    x = torch.tensor(np.concatenate([_points(256, 13).clip(0, 1),
+                                     _knots_and_faces(tcfg, 13)]))
+    n, L, F = x.shape[0], tcfg.n_levels, n_features
+    fracs = [frac for _, frac in thg._cell_levels(x, tcfg)]
+    assert all(bool((f == 0).any()) for f in fracs)
+    assert all(bool((f == 1).any()) for f in fracs)
+    rng = np.random.default_rng(F + 20)
+    g = rng.normal(size=(n, L * F)).astype(np.float32)
+    g[::9] = 0.0
+    g = torch.tensor(g)
+    want = _stream_pair_route(x, g, tcfg)
+    got = thg.cell_pair_grad_x_plain(x, g, tcfg)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(thg.cell_pair_grad_x(x, g, tcfg), want)
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_cell_pair_grad_x_matches_jax_cell_bwd(interp, n_features):
+    """K6 from positions against JAX's `_cell_bwd` on its pair branch
+    (grad_mode "sorted", bf16pair: JAX builds the lo/hi streams and runs
+    K6 in Pallas interpret mode) at L4, seeded points, knots and upper
+    faces: the same bf16-rounded products, f32 sums in another order, so
+    within 1e-5 of max |d_table|. Two dense levels (27 and 343 cells),
+    two hashed into 2^10 rows."""
+    F = n_features
+    kw = dict(n_levels=4, n_features=F, log2_hashmap_size=10,
+              base_resolution=4, per_level_scale=2.0, layout="cell",
+              interp=interp, grad_mode="sorted", grad_payload="bf16pair")
+    jcfg, tcfg = jhg.HashGridConfig(**kw), thg.HashGridConfig(**kw)
+    rng = np.random.default_rng(F + 30)
+    x = np.concatenate([rng.random((300, 3)).astype(np.float32),
+                        _knots_and_faces(tcfg, F + 30)])
+    assert thg._cell_grad_route(tcfg, x.shape[0], on_card=False) == "pair"
+    g = rng.normal(size=(x.shape[0], jcfg.output_dim)).astype(np.float32)
+    table = np.zeros((jcfg.total_entries, 8 * F), np.float32)
+    want, _ = jhg._cell_bwd(jcfg, (jnp.asarray(table), jnp.asarray(x)),
+                            jnp.asarray(g))
+    want = np.asarray(want)
+    got = thg.cell_pair_grad_x_plain(torch.tensor(x), torch.tensor(g),
+                                     tcfg).numpy()
+    assert got.shape == want.shape == (tcfg.total_entries, 8 * F)
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+def test_cell_backward_pair_route_builds_no_stream(interp, monkeypatch):
+    """The cell encode's backward on the pair route (sorted bf16pair,
+    d_table only) goes through cell_pair_grad_x once and never builds
+    the lo/hi pair streams (_cell_indices_weights, which the plain
+    forward still calls); its d_table equals the stream route's bit for
+    bit."""
+    _, tcfg = _cfgs(interp=interp, n_features=4, grad_mode="sorted",
+                    grad_payload="bf16pair")
+    assert thg._cell_grad_route(tcfg, 300, on_card=False) == "pair"
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.random((300, 3)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(300, tcfg.output_dim))
+                     .astype(np.float32))
+    table = torch.zeros((tcfg.total_entries, 32), requires_grad=True)
+    want = _stream_pair_route(x, g, tcfg)
+    # the plain forward gathers with _cell_indices_weights itself
+    out = thg.hashgrid_encode(table, x, tcfg)
+
+    def no_stream(*a):
+        raise AssertionError("the backward built K6's stream")
+
+    monkeypatch.setattr(thg, "_cell_indices_weights", no_stream)
+    calls = []
+    fused = thg.cell_pair_grad_x
+    monkeypatch.setattr(thg, "cell_pair_grad_x",
                         lambda *a: calls.append(a) or fused(*a))
     (got,) = torch.autograd.grad(out, table, g)
     assert len(calls) == 1

@@ -200,6 +200,55 @@ def test_k8_matches_jax(m, total_values, clustered):
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def _ray_ordered_values(rng, m, total_values):
+    """A K8 stream in ray order: runs of 4-40 contributions on one entry
+    (the coarse levels' rows along a ray), a tenth of the pairs zero
+    (padded samples), 50 rows past the table and 50 negative (both
+    dropped), lane0 even."""
+    n_rows = -(-total_values // 128)
+    rows, lane0 = [], []
+    while len(rows) < m:
+        k = int(rng.integers(4, 41))
+        rows += [int(rng.integers(0, n_rows))] * k
+        lane0 += [int(rng.integers(0, 64)) * 2] * k
+    rows, lane0 = np.array(rows[:m]), np.array(lane0[:m])
+    rows[100:150] = n_rows + 300
+    rows[150:200] = -3
+    v0 = rng.normal(size=m).astype(np.float32)
+    v1 = rng.normal(size=m).astype(np.float32)
+    zero = rng.random(m) < 0.1
+    v0[zero] = v1[zero] = 0.0
+    return rows, lane0, v0, v1
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("total_values", [128 * 2048, 128 * 512 + 64])
+def test_k8_plain_matches_jax_on_ray_ordered_streams(index_dtype,
+                                                     total_values):
+    """K8's plain version (the function its one-launch kernel computes:
+    entry (row * 128 + lane0) / 2, values rounded to bf16, rows outside
+    the table dropped) against JAX's K8 in interpret mode on a
+    ray-ordered stream with runs of equal entries, zero pairs and
+    out-of-range rows, with int32 and int64 ids: within 1e-5 of max
+    |want| (both round to bf16 and sum in f32, in another order)."""
+    rng = np.random.default_rng(total_values % 1000)
+    rows, lane0, v0, v1 = _ray_ordered_values(rng, 6000, total_values)
+    want = np.asarray(jhb.sorted_table_grad(
+        jnp.asarray(rows.astype(np.int32)),
+        jnp.asarray(lane0.astype(np.int32)), jnp.asarray(v0),
+        jnp.asarray(v1), total_values, interpret=True))
+    args = (torch.tensor(rows).to(index_dtype),
+            torch.tensor(lane0).to(index_dtype), torch.tensor(v0),
+            torch.tensor(v1), total_values)
+    got = thb.table_grad_values_plain(*args)
+    assert got.dtype == torch.float32
+    assert torch.equal(thb.sorted_table_grad(*args), got)
+    got = got.numpy()
+    assert got.shape == want.shape == (total_values,)
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_segment_sum_vjp_matches_jax():
     """presorted_row_segment_sum_vjp: the values' gradient is the
     gather g[keys] with sentinel rows zeroed, exactly as JAX's."""

@@ -4,10 +4,11 @@ Each test builds its kernel from csrc/ (nvcc, sm_90a) and compares it
 with the plain version on the same CUDA tensors, on the edge cases that
 random main-path inputs rarely reach: the encode, its fused table
 gradient (also on ray-ordered samples with a padded budget), the pair
-segment sum, the occupancy bits, the per-ray segment sum and the cell
-layout's table gradients K5, K6 and K7 (K5 and K7 from their streams
-and fused from positions, alone and through the cell encode's
-backward). Without a card every test skips:
+segment sum and K8's one-launch value-layout interface (also on
+ray-ordered streams whose lanes merge), the occupancy bits, the per-ray
+segment sum and the cell layout's table gradients K5, K6 and K7 (from
+their streams and fused from positions, alone and through the cell
+encode's backward). Without a card every test skips:
 a CUDA kernel has no CPU mode. The file imports no jax, so on a host
 without jax it runs without the repo's conftest:
 
@@ -16,7 +17,9 @@ without jax it runs without the repo's conftest:
 import pytest
 import torch
 
+from chip_smoke import knots_faces_ties
 from quadraturefields_tpu_torch.ops import hashgrid as hg
+from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
 from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 from quadraturefields_tpu_torch.ops import occ_bits as ob
 
@@ -240,16 +243,19 @@ def test_table_grad_kernel_ray_ordered(dev, interp, n_features, n_levels):
         assert hg.ENCODE_BWD_KERNEL.launches == before + 1
 
 
-def test_pairs_kernel_matches_plain(dev):
-    """The pair segment sum (K1's and K8's interface): heavy duplicates
-    (a thirty-second of the stream on 37 entries, ~250 each: the load of
-    a coarse dense level's rows at 2^18 points), int32 and int64
-    indices, and a stream length that is not a multiple of the
-    256-thread block: within 1e-5 of max |want|, want being the plain
-    version's sum in float64 (the atomics add in a varying order, and
-    an f32 sum's rounding grows with the number of terms per entry)."""
+@pytest.mark.parametrize("n_entries", [5000, 4_500_000])
+def test_pairs_kernel_matches_plain(dev, n_entries):
+    """The pair segment sum (K1's stream interface, on K8's kernel with
+    rounding off): heavy duplicates (a thirty-second of the stream on 37
+    entries, ~250 each: the load of a coarse dense level's rows at 2^18
+    points, where neighbouring lanes repeat and merge), int32 and int64
+    indices, a stream length that is not a multiple of the 256-thread
+    block, and a small gradient and one of 36 MB (near the L2's size):
+    within 1e-5 of max |want|, want being the plain version's sum in
+    float64 (the atomics add in a varying order, and an f32 sum's
+    rounding grows with the number of terms per entry)."""
     g = torch.Generator(device=dev).manual_seed(3)
-    m, n_entries = 300001, 5000
+    m = 300001
     idx = torch.randint(0, n_entries, (m,), generator=g, device=dev)
     idx[: m // 32] = torch.randint(0, 37, (m // 32,), generator=g,
                                    device=dev)
@@ -263,6 +269,56 @@ def test_pairs_kernel_matches_plain(dev):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-5 * scale
         assert float(got[:37].abs().min()) > 0
+
+
+def _value_stream(g, m, n_rows, dev, ordered):
+    """K8's (row, lane0, v0, v1) of m contributions into n_rows rows of
+    the value layout: uniform, or in runs of 1-40 equal entries (the
+    coarse levels' rows along rays, which a warp merges); a thirtieth of
+    the pairs zero (skipped), 50 rows past the table and 50 negative
+    (dropped)."""
+    rows = torch.randint(0, n_rows, (m,), generator=g, device=dev)
+    lane0 = torch.randint(0, 64, (m,), generator=g, device=dev) * 2
+    if ordered:
+        lengths = torch.randint(1, 41, (m,), generator=g, device=dev)
+        rows = rows.repeat_interleave(lengths)[:m].contiguous()
+        lane0 = lane0.repeat_interleave(lengths)[:m].contiguous()
+    rows[100:150] = n_rows + 7
+    rows[150:200] = -2
+    v0 = torch.randn((m,), generator=g, device=dev)
+    v1 = torch.randn((m,), generator=g, device=dev)
+    v0[::30] = 0.0
+    v1[::30] = 0.0
+    return rows, lane0, v0, v1
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("total_values", [128 * 3000 + 64,
+                                          128 * 80000 + 64])
+def test_k8_kernel_matches_plain(dev, ordered, total_values):
+    """K8's interface (hashgrid_backward.sorted_table_grad) is one launch
+    of qf_table_grad_values, with int32, int64 and mixed ids, a stream
+    length that is not a multiple of the 256-thread block and a value
+    count that is not a multiple of 128, on uniform and ray-ordered
+    streams, into a gradient of 1.5 MB and one of 41 MB: within 1e-5 of
+    max |want|, want the plain
+    version (entries, bf16 rounding, index_add_) summed in float64."""
+    g = torch.Generator(device=dev).manual_seed(7 + ordered)
+    m = 300001
+    rows, lane0, v0, v1 = _value_stream(g, m, -(-total_values // 128), dev,
+                                        ordered)
+    want = hb.table_grad_values_plain(rows, lane0, v0.double(), v1.double(),
+                                      total_values)
+    for r, ln in ((rows, lane0), (rows.int(), lane0.int()),
+                  (rows, lane0.int())):
+        before = (hb.TABLE_GRAD_VALUES_KERNEL.launches,
+                  hs.TABLE_GRAD_PAIRS_KERNEL.launches)
+        got = hb.sorted_table_grad(r, ln, v0, v1, total_values)
+        assert got.shape == (total_values,)
+        _check_rel(got, want)
+        assert (hb.TABLE_GRAD_VALUES_KERNEL.launches,
+                hs.TABLE_GRAD_PAIRS_KERNEL.launches) == (before[0] + 1,
+                                                         before[1])
 
 
 def test_segment_sum_kernel_refuses_autograd(dev):
@@ -361,26 +417,6 @@ def test_cell_factor_grad_kernel_matches_plain(dev, n_features):
         assert hs.CELL_FACTOR_GRAD_KERNEL.launches == before + 1
 
 
-def _knots_faces_ties(cfg, g, dev):
-    """Points where the cell math's branches decide, a few per row: the
-    grid knots of every level (pos = x * scale + 0.5 an integer: frac 0
-    on every axis, all three ranks tied), the upper faces (x = 1 on some
-    axes: the cell clips to n_axis - 1 and frac to 1) and exact ties of
-    two or three coordinates (fx == fy, fx == fz, fy == fz, all three)
-    at every level."""
-    knots = [((torch.randint(1, r, (64, 3), generator=g, device=dev)
-               .double() - 0.5) / s).float()
-             for s, r in zip(cfg.level_scales, cfg.level_resolutions)]
-    faces = torch.rand((96, 3), generator=g, device=dev)
-    faces[torch.arange(96), torch.arange(96) % 3] = 1.0
-    faces[::4] = 1.0
-    a = torch.rand((32, 1), generator=g, device=dev)
-    b = torch.rand((32, 1), generator=g, device=dev)
-    ties = torch.cat([torch.cat([a, a, b], 1), torch.cat([a, b, a], 1),
-                      torch.cat([b, a, a], 1), torch.cat([a, a, a], 1)])
-    return torch.cat([*knots, faces, ties]).contiguous()
-
-
 @pytest.mark.parametrize("n_features", [2, 4, 8, 16])
 def test_cell_factor_grad_x_kernel_matches_plain(dev, n_features):
     """The fused K7 from positions through tet_factor_grad_x, on uniform
@@ -400,7 +436,7 @@ def test_cell_factor_grad_x_kernel_matches_plain(dev, n_features):
     assert dense == [True, False, False]
     g = torch.Generator(device=dev).manual_seed(n_features)
     n = 50001
-    edges = _knots_faces_ties(cfg, g, dev)
+    edges = knots_faces_ties(torch, cfg, g, dev)
     fracs = [frac for _, frac in hg._cell_levels(edges, cfg)]
     assert all(bool((f == 0).all(dim=1).any()) for f in fracs)
     assert all(bool((f == 1).any()) for f in fracs)
@@ -434,7 +470,7 @@ def test_cell_row_grad_x_kernel_matches_plain(dev, interp, payload,
     g = torch.Generator(device=dev).manual_seed(n_features)
     n = 50001
     for x in (torch.rand((n, 3), generator=g, device=dev),
-              _runs(g, n, dev), _knots_faces_ties(cfg, g, dev)):
+              _runs(g, n, dev), knots_faces_ties(torch, cfg, g, dev)):
         m = x.shape[0]
         cot = torch.randn((m, cfg.output_dim), generator=g, device=dev)
         cot[m // 50:m // 25] = 0.0
@@ -442,6 +478,32 @@ def test_cell_row_grad_x_kernel_matches_plain(dev, interp, payload,
         got = hg.cell_row_grad_x(x, cot, cfg)
         _check_rel(got, hg.cell_row_grad_x_plain(x, cot.double(), cfg))
         assert hg.CELL_ROW_GRAD_X_KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("interp", ["cube", "tet"])
+@pytest.mark.parametrize("n_features", [2, 4, 8, 16])
+def test_cell_pair_grad_x_kernel_matches_plain(dev, interp, n_features):
+    """K6's fused entry through cell_pair_grad_x, tet and cube, every
+    product rounded to bf16, on uniform points, on runs of equal points
+    (warp-aggregated rows), with a ragged warp and zero cotangent rows
+    (skipped), and on knots, upper faces and rank ties, on one dense and
+    two hashed levels: within 1e-5 of max |want|, want the plain
+    version's sum in float64 of the same bf16 products."""
+    cfg = hg.HashGridConfig.from_max_resolution(
+        256, n_levels=3, n_features=n_features, log2_hashmap_size=12,
+        interp=interp, layout="cell", grad_mode="sorted",
+        grad_payload="bf16pair")
+    g = torch.Generator(device=dev).manual_seed(n_features + 40)
+    n = 50001
+    for x in (torch.rand((n, 3), generator=g, device=dev),
+              _runs(g, n, dev), knots_faces_ties(torch, cfg, g, dev)):
+        m = x.shape[0]
+        cot = torch.randn((m, cfg.output_dim), generator=g, device=dev)
+        cot[m // 50:m // 25] = 0.0
+        before = hg.CELL_PAIR_GRAD_X_KERNEL.launches
+        got = hg.cell_pair_grad_x(x, cot, cfg)
+        _check_rel(got, hg.cell_pair_grad_x_plain(x, cot.double(), cfg))
+        assert hg.CELL_PAIR_GRAD_X_KERNEL.launches == before + 1
 
 
 def test_cell_backward_runs_the_fused_factor_kernel(dev, monkeypatch):
@@ -471,7 +533,8 @@ def test_cell_backward_runs_the_fused_factor_kernel(dev, monkeypatch):
 
 @pytest.mark.parametrize("mode,payload,n_features,name", [
     ("auto", "bf16factor", 4, "tet_factor_grad_x_kernel"),
-    ("sorted", "bf16pair", 4, "pair_grad_kernel"),
+    ("sorted", "bf16pair", 4, "cell_pair_grad_x_kernel"),
+    ("sorted", "bf16pair", 2, "cell_pair_grad_x_kernel"),
     ("sorted", "f32", 4, "cell_row_grad_x_kernel"),
     ("exact", "bf16sim", 4, "cell_row_grad_x_kernel"),
     ("sorted", "bf16factor", 2, "cell_row_grad_x_kernel"),
@@ -482,7 +545,7 @@ def test_cell_encode_backward_launches_its_kernel(dev, mode, payload,
                                                   monkeypatch):
     """The cell encode's table gradient on the card takes JAX's route
     (`auto` is sorted here: 3 * E < n * L) and launches exactly that one
-    kernel (K7 and K5 through their fused entries; K5's stream entry
+    kernel (K7, K6 and K5 through their fused entries; K5's stream entry
     only for an F the fused entry does not take), whose output lies
     within 1e-5 of max |want| of the plain version summed in float64 on
     the inputs it was given."""
@@ -497,21 +560,22 @@ def test_cell_encode_backward_launches_its_kernel(dev, mode, payload,
     x = torch.rand((n, 3), generator=g, device=dev)
     cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
     calls = []
-    mod = hs if name in ("pair_grad_kernel", "row_grad_kernel") else hg
+    mod = hs if name == "row_grad_kernel" else hg
     real = getattr(mod, name)
     monkeypatch.setattr(mod, name, lambda *a: calls.append(a) or real(*a))
     kernels = {"row_grad_kernel": hs.CELL_ROW_GRAD_KERNEL,
                "pair_grad_kernel": hs.CELL_PAIR_GRAD_KERNEL,
                "tet_factor_grad_x_kernel": hg.CELL_FACTOR_GRAD_X_KERNEL,
-               "cell_row_grad_x_kernel": hg.CELL_ROW_GRAD_X_KERNEL}
+               "cell_row_grad_x_kernel": hg.CELL_ROW_GRAD_X_KERNEL,
+               "cell_pair_grad_x_kernel": hg.CELL_PAIR_GRAD_X_KERNEL}
     before = {k: v.launches for k, v in kernels.items()}
     (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
                                  cot)
     assert len(calls) == 1
     plain = {"tet_factor_grad_x_kernel": hg.tet_factor_grad_x_plain,
-             "pair_grad_kernel": hs.pair_grad_plain,
              "row_grad_kernel": hs.row_grad_plain,
-             "cell_row_grad_x_kernel": hg.cell_row_grad_x_plain}[name]
+             "cell_row_grad_x_kernel": hg.cell_row_grad_x_plain,
+             "cell_pair_grad_x_kernel": hg.cell_pair_grad_x_plain}[name]
     _check_rel(got, plain(*_f64(calls[0])))
     launched = {k: v.launches - before[k] for k, v in kernels.items()}
     assert launched == {k: int(k == name) for k in kernels}
