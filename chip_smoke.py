@@ -4,7 +4,9 @@
     python3 chip_smoke.py             # all phases
     python3 chip_smoke.py --profile   # and a torch.profiler breakdown of
                                       # one evaluate() of phase 3 and the
-                                      # training steps of phases 4 and 5
+                                      # training steps of phases 4, 5, 7
+    python3 chip_smoke.py --export N  # and phase 7's field exported again
+                                      # at N^3 (the CLI's default: 1024)
     python3 chip_smoke.py --baseline DIR
         # and time K8's interface, K1's stream interface and K6's route of
         # another checkout at DIR (e.g. a parent commit unpacked with
@@ -46,12 +48,38 @@ Phases (any failure raises and exits non-zero):
      the bf16pair table gradient ("train_cell_bf16pair"): K6's fused
      entry once a step; every other cell table gradient never;
   6. K1, K2, K5, K6, K7 and K8 again, on the main paths' own inputs
-     captured in phases 3-5: the positions of one eval chunk (all its
-     slots, and its valid samples alone) and of one corner training step
-     (K2, tet as the paths run it and cube on the same positions), the
-     positions and cotangent of that corner step (K1, tet and cube; K8
-     and K1's stream interface on its contributions in ray order) and of
-     one step of each cell path (K7, K5, K6).
+     captured in phases 3-5 and 7 (it runs last): the positions of one
+     eval chunk (all its slots, and its valid samples alone), of one
+     corner training step and of one stage-2 step on the 317 MB field
+     table (K2, tet as the paths run it and cube on the same positions),
+     the positions and cotangent of that corner step (K1, tet and cube;
+     K8 and K1's stream interface on its contributions in ray order), of
+     that stage-2 step (K1 into the field table, and its zeroing alone)
+     and of one step of each cell path (K7, K5, K6);
+  7. stage 2 ("train_field"): a stage-1 feeder with
+     run_nerfsynthetic.sh's model flags (corner L16 F2 T2^19, mlp head,
+     2 layers, scale 1.5, occ regulariser, occ_thres 0.01) trains 300
+     steps at 2^18 samples and is saved with Stage1Trainer.save;
+     Stage2Trainer reads it and trains run_nerfsynthetic_field.sh's field
+     (corner tet L16 F2, log2_T 30: 39,601,112 rows, a dense 256^3 top
+     level; hidden 16, ELU, f32) for 300 steps at 2^18 samples through
+     train(), which exports the grids at 256^3. K2, K4, K3 and the fused
+     K1 must launch, K1 once a step, no cell table gradient and no stream
+     entry. Gates: finite losses whose last-20 mean is below
+     FIELD_LOSS_GATE times the first-20 mean, the artifact contract
+     (grids_valid f32, grads_valid and density_grids_valid f16, all
+     256^3, binaries), and the fixture sphere in the exported |grad|:
+     its shell against outside and against deep inside
+     (FIELD_SHELL_GATE, FIELD_INTERIOR_GATE). Reports ms/step, rays/s
+     and samples/s over steps 150-300, the export's points/s and Adam's
+     time over the field; then one step on the kernel path against the
+     plain path.
+Reduced sizes, against the scripts: the stage-1 feeder runs 300 steps at
+2^18 samples (run_nerfsynthetic.sh: 20,000 at 2^20); stage 2 runs 300
+of its 25,000 steps; the export is 256^3 (the CLI's default 1024^3);
+the views are 4 fixture views of 256^2 (the scripts: nerf-synthetic
+chair). The field, the NGP and the 2^18 stage-2 budget run at the
+scripts' widths.
 The last two lines of standard output are a JSON summary of the kernels
 and the result line {"ok": true, "device": {...}}.
 """
@@ -59,6 +87,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -304,13 +334,14 @@ class Baseline:
 
 
 @contextmanager
-def capture(mod, name, store, key):
-    """Patch mod.name so that the arguments of its first call (tensors
-    cloned) land in store[key]."""
+def capture(mod, name, store, key, when=None):
+    """Patch mod.name so that the arguments of its first call (of the
+    first for which when(*args) holds, with `when`; tensors cloned) land
+    in store[key]."""
     real = getattr(mod, name)
 
     def recording(*args):
-        if key not in store:
+        if key not in store and (when is None or when(*args)):
             store[key] = tuple(a.detach().clone() if hasattr(a, "detach")
                                else a for a in args)
         return real(*args)
@@ -938,20 +969,37 @@ def render_slice(torch, kernels, card, views, captured, profile: bool):
     return launches
 
 
-def step_grads(torch, trainer, batch):
-    """Loss and every parameter's gradient of one training step on
-    `batch` (origins, viewdirs, pixels, bkgd, t_jitter)."""
+def step_grads(torch, params, loss_fn):
+    """Loss and every leaf's gradient of the params tree `params` (zeros
+    where the loss does not reach) of one training step, loss_fn() ->
+    the loss."""
     from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
 
-    leaves = _leaves(trainer.params)
+    leaves = _leaves(params)
     for p in leaves:
         p.grad = None
-    loss, _ = trainer._loss_fn(trainer.params, trainer.occ_state, *batch)
+    loss = loss_fn()
     loss.backward()
-    grads = [p.grad.detach().clone() for p in leaves]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+             for p in leaves]
     for p in leaves:
         p.grad = None
     return float(loss.detach()), grads
+
+
+def ngp_step_grads(torch, trainer, batch):
+    """step_grads of one stage-1 step on `batch` (origins, viewdirs,
+    pixels, bkgd, t_jitter)."""
+    return step_grads(torch, trainer.params, lambda: trainer._loss_fn(
+        trainer.params, trainer.occ_state, *batch)[0])
+
+
+def field_step_grads(torch, trainer, batch):
+    """step_grads of one stage-2 step on `batch`, in the field's
+    parameters (the decoder's output bias, which the loss does not
+    reach, gets zeros)."""
+    return step_grads(torch, trainer.field_params, lambda: trainer._loss_fn(
+        trainer.field_params, *batch)[0])
 
 
 def train_slice(torch, kernels, card, views, name, cfg, must_launch,
@@ -1032,7 +1080,7 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
             capture(hg, "cell_row_grad_x_kernel", captured, "cell_f32_step"), \
             capture(hg, "cell_pair_grad_x_kernel", captured,
                     "cell_bf16pair_step"):
-        step_grads(torch, trainer, batch)
+        ngp_step_grads(torch, trainer, batch)
     for dtype in ("float32", "bfloat16"):
         compare_step(torch, trainer, kernels, batch, dtype, table_grad)
 
@@ -1072,11 +1120,12 @@ def compare_step(torch, trainer, kernels, batch, compute_dtype, table_grad):
 
     try:
         with mock.patch.object(mod, name, recording):
-            loss_k, grads_k = step_grads(torch, trainer, batch)
+            loss_k, grads_k = ngp_step_grads(torch, trainer, batch)
         before = {k.name: k.launches for k in kernels}
         with plain_path():
-            loss_p, grads_p = step_grads(torch, trainer, batch)
-            reruns = [step_grads(torch, trainer, batch)[1] for _ in range(3)]
+            loss_p, grads_p = ngp_step_grads(torch, trainer, batch)
+            reruns = [ngp_step_grads(torch, trainer, batch)[1]
+                      for _ in range(3)]
         check({k.name: k.launches for k in kernels} == before,
               "the plain-path step launched a kernel")
     finally:
@@ -1192,6 +1241,293 @@ def profile_steps(torch, step, card, n_steps=10, label="step"):
               f"{e.count / n_steps:.0f}x {e.key} {str(e.input_shapes)[:90]}")
 
 
+# phase 7's quality gates, set from a CPU run of both packages at
+# tests/test_pipeline_full.py's settings (tests/test_torch_stage2.py
+# test_stage2_quality_gates_on_the_cpu: stage 1 220 steps, stage 2 120
+# steps, field log2_T 14, a 48^3 export; each package from its own
+# stage-1 run). Last-20 / first-20 mean loss: JAX 0.5658, the port
+# 0.4647; the gate is 0.8, a margin of 0.23 over JAX's. The mean
+# exported |grad| over the sphere's shell against its mean outside
+# every sample: JAX 1.465, the port 1.242; against its mean deep inside
+# the sphere: JAX 1.925, the port 1.967. JAX reaches 2 on neither, so
+# each gate is half of JAX's: 0.73 and 0.96.
+FIELD_LOSS_GATE = 0.8
+FIELD_SHELL_GATE = 0.73
+FIELD_INTERIOR_GATE = 0.96
+
+
+def sphere_shell_ratios(grads_valid, field_scale=0.5):
+    """(mean exported |grad| over the cells at field radius 0.13 < r <
+    0.20, where the fixture sphere's surface is (world radius 0.5, field
+    units world / 3), over its mean at r > 0.3, outside every sample; and
+    over its mean at r < 0.1, deep inside the sphere, where both the
+    forward and the reverse weights have died out). Cell centres of the
+    2x-supersampled lattice linspace(-1, 1) * field_scale, pooled in
+    pairs."""
+    n = grads_valid.shape[0]
+    lin = np.linspace(-1.0, 1.0, 2 * n) * field_scale
+    c = (lin[0::2] + lin[1::2]) / 2
+    r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2
+                + c[None, None, :] ** 2)
+    g = grads_valid.astype(np.float32)
+    shell = g[(r > 0.13) & (r < 0.20)].mean()
+    return float(shell / g[r > 0.3].mean()), float(shell / g[r < 0.1].mean())
+
+
+def compare_field_step(torch, trainer, kernels, batch):
+    """One stage-2 step, kernel path against plain path (every kernel
+    patched with its plain version), f32 throughout the field: the loss
+    within 1e-5 relative; the K1 output of the kernel-path step within
+    1e-5 * max |want| of the plain version summed in float64 on the
+    inputs it was given (the atomics add in a varying order); every
+    field gradient, table and decoder, within 1e-4 of its max of the
+    plain path's."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    calls = []
+    kernel = hg.table_grad_kernel
+
+    def recording(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    with mock.patch.object(hg, "table_grad_kernel", recording):
+        loss_k, grads_k = field_step_grads(torch, trainer, batch)
+    before = {k.name: k.launches for k in kernels}
+    with plain_path():
+        loss_p, grads_p = field_step_grads(torch, trainer, batch)
+    check({k.name: k.launches for k in kernels} == before,
+          "the plain-path stage-2 step launched a kernel")
+    check(len(calls) == 1, f"{len(calls)} calls of K1 in one stage-2 step")
+    args, got = calls[0]
+    want = hg.table_grad_plain(*as_f64(args))
+    k1_err = float((got - want).abs().max() / want.abs().max())
+    del want, got, calls
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    errs = [float((a - b).abs().max() / b.abs().max()) if b.abs().max() > 0
+            else float(a.abs().max()) for a, b in zip(grads_k, grads_p)]
+    print(f"one stage-2 step, kernel path vs plain path: loss {loss_k} vs "
+          f"{loss_p} (relative {loss_rel}, limit 1e-5); K1 output vs "
+          f"float64 plain sum, same inputs: {k1_err} of max (limit 1e-5); "
+          f"gradient error / max |grad| per leaf (table first, the output "
+          f"bias's gradient is 0) {errs} (limit 1e-4)")
+    check(loss_rel <= 1e-5, f"kernel-path stage-2 loss disagrees: {loss_rel}")
+    check(k1_err <= 1e-5, f"K1 in the stage-2 step disagrees: {k1_err}")
+    check(all(e <= 1e-4 for e in errs),
+          f"kernel-path stage-2 gradients disagree: {errs}")
+    return dict(loss_rel=loss_rel, k1_rel=k1_err, grad_rel=errs)
+
+
+def field_slice(torch, kernels, card, views, captured, report,
+                profile: bool, export_size: int = 0):
+    """Phase 7: stage 2 at run_nerfsynthetic_field.sh's widths. A
+    stage-1 feeder (run_nerfsynthetic.sh's model flags, 300 steps at
+    2^18) is saved with Stage1Trainer.save; Stage2Trainer reads it and
+    runs train() for 300 steps with the 256^3 export. K2, K4, K3 and the
+    fused K1 must launch, K1 once a step; no cell table gradient and no
+    stream entry. Gates: finite losses that fall, the artifact contract,
+    the fixture sphere in the exported |grad|. Then one step on the
+    kernel path against the plain path, and (for phase 6) the field
+    encode's and K1's arguments of that step. Fills report["train_field"]
+    and returns the path's launches."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.train.stage1_ngp import (
+        Stage1Config,
+        Stage1Trainer,
+        _leaves,
+    )
+    from quadraturefields_tpu_torch.train.stage2_field import (
+        Stage2Config,
+        Stage2Trainer,
+    )
+
+    root = tempfile.mkdtemp(prefix="qf_smoke_")
+    # the feeder: run_nerfsynthetic.sh's --num_lobes 0 --num_layers 2
+    # --scale 1.5 --reg_type occ --occ_thres 0.01, corner L16 F2 T2^19,
+    # 300 steps at 2^18 samples
+    c1 = Stage1Config(root=root, scene="fixture", max_steps=300,
+                      num_lobes=0, num_layers=2, scale=1.5, reg_type="occ",
+                      occ_thres=0.01, ckpt_every=10**9, log_every=10**9)
+    views.update_num_rays(c1.init_batch_size)
+    t1 = Stage1Trainer(c1, train_dataset=views, test_dataset=views)
+    t0 = time.perf_counter()
+    while t1.step <= c1.max_steps:
+        loss, _ = t1.train_one_step()
+    ckpt = os.path.join(root, "ngp.pt")
+    t1.save(ckpt)
+    feeder_occ = float(t1.occ_state.binaries.float().mean())
+    print(f"stage-1 feeder: {c1.max_steps + 1} steps in "
+          f"{time.perf_counter() - t0:.2f} s, last loss {float(loss):.6f}, "
+          f"occupied cells {feeder_occ:.4f}; saved {ckpt}")
+    del t1
+
+    # stage 2: --num_lobes 0 --log2_hashmap_size 19
+    # --field_log2_hashmap_size 30 --batch_size 18 --scale 1.5, 300 of its
+    # 25,000 steps, a 256^3 export (the CLI's default is 1024^3)
+    cfg = Stage2Config(root=root, scene="fixture", ckpt_path=ckpt,
+                       num_lobes=0, log2_hashmap_size=19,
+                       field_log2_hashmap_size=30, batch_size_log2=18,
+                       scale=1.5, grid_export_size=256, max_steps=300,
+                       log_every=50, ckpt_every=10**9)
+    views.update_num_rays(cfg.init_batch_size)
+    trainer = Stage2Trainer(cfg, train_dataset=views)
+    fgrid = trainer.field_cfg.hashgrid
+    e, budget = fgrid.total_entries, trainer.rcfg.max_samples_total
+    check(e == 39_601_112, f"the field table has {e} rows")
+    print(f"field: {trainer.field_cfg}; table {e} rows x "
+          f"{fgrid.n_features} f32 ({e * fgrid.n_features * 4 / 1e6:.1f} MB)")
+
+    record, export_s = [], []
+    one_step, export = trainer.train_one_step, trainer.export_artifacts
+
+    def timed_step():
+        rays = views.num_rays
+        loss, nv, mse = one_step()
+        loss = float(loss)  # waits for the step
+        record.append((time.perf_counter(), rays, min(nv, budget), loss))
+        return loss, nv, mse
+
+    def timed_export(out_dir):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        export(out_dir)
+        torch.cuda.synchronize()
+        export_s.append(time.perf_counter() - t)
+
+    trainer.train_one_step, trainer.export_artifacts = timed_step, timed_export
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = count_launches(kernels, trainer.train)
+    train_s = time.perf_counter() - t0
+    trainer.train_one_step, trainer.export_artifacts = one_step, export
+    n_steps = len(record)
+    print(f"train_field: {n_steps} steps + export + checkpoint in "
+          f"{train_s:.2f} s; kernel launches {launches}")
+    path_kernels = (hg.ENCODE_KERNEL.name, "occ_bits", "segment_sum",
+                    hg.ENCODE_BWD_KERNEL.name)
+    for name in path_kernels:
+        check(launches[name] > 0, f"train_field never launched {name}")
+    check(launches[hg.ENCODE_BWD_KERNEL.name] == n_steps,
+          f"K1 launched {launches[hg.ENCODE_BWD_KERNEL.name]} times in "
+          f"{n_steps} steps")
+    others = {k: n for k, n in launches.items() if k not in path_kernels}
+    check(not any(others.values()), f"train_field launched {others}")
+
+    losses = [r[3] for r in record]
+    check(all(np.isfinite(losses)), "non-finite stage-2 loss")
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    print(f"stage-2 loss: mean of the first 20 steps {first:.6f}, of the "
+          f"last 20 {last:.6f} (ratio {last / first:.4f}, must be < "
+          f"{FIELD_LOSS_GATE})")
+    check(last < FIELD_LOSS_GATE * first, "the stage-2 loss did not fall")
+
+    out_dir = os.path.join(root, "results", "fixture", "field")
+    n = cfg.grid_export_size
+    arrays = {}
+    for name, dtype, shape in (
+        ("binaries.npy", np.bool_, (1,) + (cfg.grid_resolution,) * 3),
+        ("grids_valid.npy", np.float32, (n,) * 3),
+        ("grads_valid.npy", np.float16, (n,) * 3),
+        ("density_grids_valid.npy", np.float16, (n,) * 3),
+    ):
+        a = np.load(os.path.join(out_dir, name))
+        check(a.dtype == dtype and a.shape == shape,
+              f"{name}: {a.dtype} {a.shape}, the contract is {dtype} {shape}")
+        check(bool(np.isfinite(a.astype(np.float32)).all()),
+              f"{name} is not finite")
+        arrays[name] = a
+    check(os.path.exists(os.path.join(root, "ckpts", "fixture", "field",
+                                      "field.pt")), "no stage-2 checkpoint")
+    ratio, inner = sphere_shell_ratios(arrays["grads_valid.npy"],
+                                       cfg.field_scale)
+    print(f"exported |grad|: mean over the sphere shell 0.13 < r < 0.20 "
+          f"over its mean at r > 0.3 {ratio:.4f} (must be >= "
+          f"{FIELD_SHELL_GATE}), at r < 0.1 {inner:.4f} (must be >= "
+          f"{FIELD_INTERIOR_GATE})")
+    check(ratio >= FIELD_SHELL_GATE,
+          f"the field did not learn the sphere: shell / outside {ratio}")
+    check(inner >= FIELD_INTERIOR_GATE,
+          f"the field did not learn the sphere: shell / interior {inner}")
+
+    t_a, t_b = record[150][0], record[300][0]
+    rays = sum(r[1] for r in record[151:301])
+    samples = sum(r[2] for r in record[151:301])
+    steady_s = t_b - t_a
+    points = (2 * n) ** 3
+    out = dict(
+        steps=n_steps, ms_per_step=steady_s / 150 * 1e3,
+        rays_per_s=rays / steady_s, samples_per_s=samples / steady_s,
+        loss_first20=first, loss_last20=last, shell_ratio=ratio,
+        shell_over_interior=inner,
+        export_s=export_s[0], export_points=2 * points,
+        export_points_per_s=2 * points / export_s[0],
+        launches=launches, card=card)
+    print(f"stage-2 training (train_field), steps 150-300: "
+          f"{out['ms_per_step']:.3f} ms/step, {out['rays_per_s']:.1f} "
+          f"rays/s, {out['samples_per_s']:.1f} samples/s (valid samples, "
+          f"at most {budget} a step); batch now {views.num_rays} rays; "
+          f"export {n}^3: {export_s[0]:.3f} s for {points} field and "
+          f"{points} density points, {out['export_points_per_s']:.1f} "
+          f"points/s [{card}]")
+
+    # one step on the kernel path against the plain path, with the
+    # trained weights, one batch and one jitter; the field encode's and
+    # K1's arguments of the kernel-path step go to phase 6
+    data = views.fetch_train_batch()
+    dev = trainer.device
+    batch = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+             for a in (data["rays"].origins, data["rays"].viewdirs,
+                       data["pixels"], data["color_bkgd"])]
+    batch.append(torch.rand((batch[0].shape[0],), generator=trainer.generator,
+                            device=dev))
+    with capture(hg, "encode_kernel", captured, "field_step",
+                 when=lambda table, x, c: c == fgrid), \
+            capture(hg, "table_grad_kernel", captured, "field_grad_step"):
+        field_step_grads(torch, trainer, batch)
+    out["compare"] = compare_field_step(torch, trainer, kernels, batch)
+
+    if export_size:
+        # the same trained field and NGP exported at another size
+        # (--export N), timed on its own
+        trainer.cfg.grid_export_size = export_size
+        big = tempfile.mkdtemp(prefix="qf_smoke_export_")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.export_artifacts(big)
+        torch.cuda.synchronize()
+        big_s = time.perf_counter() - t
+        points = (2 * export_size) ** 3
+        grads = np.load(os.path.join(big, "grads_valid.npy"), mmap_mode="r")
+        check(grads.shape == (export_size,) * 3 and grads.dtype == np.float16,
+              f"the {export_size}^3 export wrote {grads.shape} {grads.dtype}")
+        del grads
+        shutil.rmtree(big)
+        out[f"export_{export_size}"] = dict(
+            s=big_s, points=2 * points, points_per_s=2 * points / big_s)
+        print(f"export {export_size}^3 (the same field): {big_s:.3f} s for "
+              f"{points} field and {points} density points, "
+              f"{2 * points / big_s:.1f} points/s, the files written "
+              f"included [{card}]")
+
+    if profile:
+        profile_steps(torch, trainer.train_one_step, card,
+                      label="stage-2 step (train_field)")
+    # Adam over the field's leaves (the 317 MB table and the decoder),
+    # timed alone on zero gradients: p, g, m and v read, p, m and v
+    # written at least once
+    leaves = _leaves(trainer.field_params)
+    for p in leaves:
+        p.grad = torch.zeros_like(p)
+    n_params = sum(p.numel() for p in leaves)
+    out["adam_ms"] = cuda_ms(trainer.optimizer.step, iters=5, warmup=1)
+    out["adam_bound_ms"] = bound(7 * 4 * n_params, 0)["bound_ms"]
+    print(f"Adam over the field's {n_params} parameters: {out['adam_ms']:.4f}"
+          f" ms a step, bound {out['adam_bound_ms']:.4f} ms [{card}]")
+    report["train_field"] = out
+    return launches
+
+
 def time_captured(torch, report, captured, card, baseline=None):
     """Phase 6: K2, K1, K5, K6, K7 and K8 on the inputs that the main
     paths gave them (captured in phases 3-5), against their plain
@@ -1209,13 +1545,15 @@ def time_captured(torch, report, captured, card, baseline=None):
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
     for key in ("eval_chunk", "train_step", "corner_grad_step", "cell_step",
-                "cell_f32_step", "cell_bf16pair_step"):
+                "cell_f32_step", "cell_bf16pair_step", "field_step",
+                "field_grad_step"):
         check(key in captured, f"no kernel call captured in {key}")
     table, x, cfg = captured["eval_chunk"]
     inputs = {"eval_chunk": (table, x, cfg),
               "eval_chunk_valid": (table,
                                    x[:captured["eval_chunk_valid"]], cfg),
-              "train_step": captured["train_step"]}
+              "train_step": captured["train_step"],
+              "field_step": captured["field_step"]}
     enc = report["hashgrid_encode"]
     for path, (table, x, path_cfg) in inputs.items():
         distinct = int(torch.unique(x, dim=0).shape[0])
@@ -1277,6 +1615,21 @@ def time_captured(torch, report, captured, card, baseline=None):
             f"table grad (K1 fused) {interp} on one corner step's x and g",
             hg.table_grad_kernel, hg.table_grad_plain, x, g, cfg,
             cfg.total_entries * cfg.n_features * 4, cfg.corners)}
+    # K1 on the stage-2 step's x and g into the 317 MB field table; its
+    # wrapper zeroes the gradient before the launch, timed alone too
+    x, g, cfg = captured["field_grad_step"]
+    entry = table_grad(
+        "table grad (K1 fused) tet on one stage-2 step's x and g, field "
+        f"table {cfg.total_entries} rows", hg.table_grad_kernel,
+        hg.table_grad_plain, x, g, cfg,
+        cfg.total_entries * cfg.n_features * 4, cfg.corners)
+    entry["memset_ms"] = cuda_ms(lambda: torch.zeros(
+        (cfg.total_entries, cfg.n_features), device=x.device))
+    print(f"the field gradient's zeroing alone ({cfg.total_entries} x "
+          f"{cfg.n_features} f32): {entry['memset_ms']:.4f} ms [{card}]")
+    k1["captured"]["field_step"] = entry
+    del x, g
+    x, g, path_cfg = captured["corner_grad_step"]
     # K8 and K1's stream entry on the same step's contributions, ordered
     # (level, corner, sample): neighbouring samples of a ray share the
     # rows of the coarse levels, so lanes merge as in K1
@@ -1441,6 +1794,11 @@ def main() -> int:
         "train_cell_bf16pair", "bf16pair", hg.CELL_PAIR_GRAD_X_KERNEL,
         "cell_pair_grad_x_kernel", hg.cell_pair_grad_x_plain)
 
+    # phase 7: stage 2 at run_nerfsynthetic_field.sh's widths
+    field_launches = field_slice(
+        torch, counted, card, views, captured, report, profile,
+        int(args[args.index("--export") + 1]) if "--export" in args else 0)
+
     time_captured(torch, report, captured, card, baseline)
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -1450,12 +1808,14 @@ def main() -> int:
 
     paths = {"eval": eval_launches, "train": train_launches,
              "train_cell": cell_launches, "train_cell_f32": f32_launches,
-             "train_cell_bf16pair": pair_launches}
+             "train_cell_bf16pair": pair_launches,
+             "train_field": field_launches}
     for name, stream in streams.items():
         report[name]["stream"]["launches_by_path"] = {
             p: n[stream.name] for p, n in paths.items()}
     report["cell_row_grad_x"]["also_replaces"] = (
         "quadraturefields_tpu/ops/hashgrid_sorted.py:116")
+    print(json.dumps({"train_field": report["train_field"]}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

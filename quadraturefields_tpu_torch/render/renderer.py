@@ -1,12 +1,13 @@
-"""Packed-sample volume renderer for the stage-1 NGP field.
+"""Packed-sample volume renderer of the NGP field.
 
-Port of quadraturefields_tpu/render/renderer.py (stage-1 half): the
+Port of quadraturefields_tpu/render/renderer.py (stages 1 and 2): the
 occupancy-grid march (stratified when training), the NGP query at the
 sample midpoints, and one compositor whose per-ray sum is the
 differentiable presorted segment sum (a CUDA kernel on the card, a
-gather backward). `make_test_renderer` is the memory-bounded alive-ray
-window renderer of the evaluation path. The stage-2 render_rays_field
-comes with stage 2.
+gather backward). `render_rays_occgrid` serves stage 1;
+`render_rays_field` (stage 2) adds each sample's reverse-direction
+weight. `make_test_renderer` is the memory-bounded alive-ray window
+renderer of the evaluation path.
 """
 from __future__ import annotations
 
@@ -145,6 +146,79 @@ def render_rays_occgrid(
         weights=weights,
         sigmas=torch.where(samples.valid, sigmas, 0.0),
         samples=samples,
+    )
+
+
+class FieldRenderResult(NamedTuple):
+    rgb: torch.Tensor
+    opacity: torch.Tensor
+    depth: torch.Tensor
+    num_valid: torch.Tensor
+    weights: torch.Tensor      # [S] forward weights
+    weights_rev: torch.Tensor  # [S] reverse-direction weights
+    positions: torch.Tensor    # [S, 3] world sample positions
+    dirs: torch.Tensor         # [S, 3]
+    valid: torch.Tensor        # [S]
+
+
+def render_rays_field(
+    ngp_params,
+    aabb: torch.Tensor,
+    ngp_cfg: NGPConfig,
+    occ_state: OccGridState,
+    origins: torch.Tensor,
+    viewdirs: torch.Tensor,
+    rcfg: RenderConfig,
+    render_bkgd: Optional[torch.Tensor] = None,
+    stratified: bool = False,
+    t_jitter: Optional[torch.Tensor] = None,
+) -> FieldRenderResult:
+    """Stage-2 render: the forward and the reverse rendering weight of
+    every sample, which supervise |grad(field) . dir| (reference
+    render_image_field_with_occgrid, utils.py:353-462, and
+    rendering_field, field_rendering.py:575-733). The same march, NGP
+    query and composite as `render_rays_occgrid`; the trainer calls it
+    under torch.no_grad()."""
+    n_rays = origins.shape[0]
+    samples = occ_grid_sampling(
+        occ_state,
+        origins,
+        viewdirs,
+        render_step_size=rcfg.render_step_size,
+        max_steps=rcfg.max_steps,
+        max_samples_total=rcfg.max_samples_total,
+        near_plane=rcfg.near_plane,
+        far_plane=rcfg.far_plane,
+        stratified=stratified,
+        t_jitter=t_jitter,
+        coarse_factor=rcfg.coarse_factor,
+        max_coarse_hits=rcfg.max_coarse_hits,
+        coarse_stride=rcfg.coarse_stride,
+        coarse_dilation=rcfg.coarse_dilation,
+        cone_angle=rcfg.cone_angle,
+        contract_aabb=aabb if ngp_cfg.unbounded else None,
+    )
+    pos, dirs, _ = _sample_positions(samples, origins, viewdirs, n_rays)
+    rgbs, sigmas = ngp_forward(ngp_params, pos, dirs, aabb, ngp_cfg)
+    sigmas = torch.where(samples.valid, sigmas[..., 0], 0.0)
+    colors, opacity, depth, weights = _composite(
+        samples, rgbs, sigmas, n_rays, render_bkgd,
+        rcfg.early_stop_eps, rcfg.alpha_thre,
+    )
+    weights_rev = scan.reverse_weights(
+        samples.t_starts, samples.t_ends, sigmas, samples.ray_indices,
+        n_rays, samples.valid,
+    )
+    return FieldRenderResult(
+        rgb=colors,
+        opacity=opacity,
+        depth=depth,
+        num_valid=samples.num_valid,
+        weights=weights,
+        weights_rev=torch.where(samples.valid, weights_rev, 0.0),
+        positions=pos,
+        dirs=dirs,
+        valid=samples.valid,
     )
 
 

@@ -5,7 +5,8 @@ The JAX `ngp_init` tree, fetched as numpy arrays, is
 both packages), "mlp_base": {"layers": [{"w": [in, out]}, ...]},
 "mlp_head": {"layers": [{"w": [in, out], "b": [out]}, ...]}}. The port
 uses the same tree with torch tensors and keeps every `w` as
-[in, out] (y = x @ w), so nothing is transposed.
+[in, out] (y = x @ w), so nothing is transposed. The stage-2 field tree
+{"table", "decoder": {"layers": [...]}} carries across the same way.
 """
 from __future__ import annotations
 
@@ -25,6 +26,12 @@ def _tree_to_torch(tree, device):
 
 def params_from_jax(np_tree, device=None):
     """JAX ngp params (numpy leaves) -> the port's params dict."""
+    return _tree_to_torch(np_tree, device)
+
+
+def field_params_from_jax(np_tree, device=None):
+    """JAX field params (`field_init`'s tree, numpy leaves) -> the
+    port's."""
     return _tree_to_torch(np_tree, device)
 
 
