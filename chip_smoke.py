@@ -4,9 +4,10 @@
     python3 chip_smoke.py             # all phases
     python3 chip_smoke.py --profile   # and a torch.profiler breakdown of
                                       # one evaluate() of phase 3 and the
-                                      # training steps of phases 4, 5, 7
+                                      # training steps of phases 4, 5, 7, 8
     python3 chip_smoke.py --export N  # and phase 7's field exported again
-                                      # at N^3 (the CLI's default: 1024)
+                                      # at N^3 (the CLI's default: 1024),
+                                      # and phase 8's stage 3 run on it
     python3 chip_smoke.py --baseline DIR
         # and time K8's interface, K1's stream interface and K6's route of
         # another checkout at DIR (e.g. a parent commit unpacked with
@@ -14,7 +15,8 @@
 
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
-     quadraturefields_tpu_torch/csrc, one nvcc per source, all at once;
+     quadraturefields_tpu_torch/csrc, one nvcc per source, all at once,
+     and beside them the host geometry library (g++);
   2. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes, and time both (and the one-call library
      equivalent where there is one): the encode (K2), the occupancy
@@ -47,15 +49,17 @@ Phases (any failure raises and exits non-zero):
      gradient ("train_cell_f32"): K5's fused entry once a step, and with
      the bf16pair table gradient ("train_cell_bf16pair"): K6's fused
      entry once a step; every other cell table gradient never;
-  6. K1, K2, K5, K6, K7 and K8 again, on the main paths' own inputs
-     captured in phases 3-5 and 7 (it runs last): the positions of one
-     eval chunk (all its slots, and its valid samples alone), of one
-     corner training step and of one stage-2 step on the 317 MB field
-     table (K2, tet as the paths run it and cube on the same positions),
-     the positions and cotangent of that corner step (K1, tet and cube;
-     K8 and K1's stream interface on its contributions in ray order), of
-     that stage-2 step (K1 into the field table, and its zeroing alone)
-     and of one step of each cell path (K7, K5, K6);
+  6. K1, K2, K3, K5, K6, K7 and K8 again, on the main paths' own inputs
+     captured in phases 3-5, 7 and 8 (it runs last): the positions of
+     one eval chunk (all its slots, and its valid samples alone), of one
+     corner training step, of one stage-2 step on the 317 MB field table
+     and of one joint stage-4 step on the 813 MB deformation table (K2,
+     tet as the paths run it and cube on the same positions), the
+     positions and cotangent of that corner step (K1, tet and cube; K8
+     and K1's stream interface on its contributions in ray order), of
+     the stage-2 and stage-4 steps (K1 into their tables, and the
+     zeroing alone), of one step of each cell path (K7, K5, K6), and the
+     stage-4 step's packed composite (K3, and index_add_);
   7. stage 2 ("train_field"): a stage-1 feeder with
      run_nerfsynthetic.sh's model flags (corner L16 F2 T2^19, mlp head,
      2 layers, scale 1.5, occ regulariser, occ_thres 0.01) trains 300
@@ -74,9 +78,32 @@ Phases (any failure raises and exits non-zero):
      and samples/s over steps 150-300, the export's points/s and Adam's
      time over the field; then one step on the kernel path against the
      plain path.
+  8. stages 3 and 4 ("train_finetune"): the port's marching_cubes and
+     downsample_mesh CLIs with run_nerfsynthetic_mc.sh's arguments
+     (STAGE3_ARGS) on phase 7's 256^3 export (and its 1024^3 export
+     with --export 1024), timed (device filters, marching tetrahedra,
+     decimation); gates: a mesh near the fixture sphere, smp_mesh.ply
+     smaller, the three files. Then Stage4Trainer.train at
+     run_nerfsynthetic_finetune.sh's flags (the deformation field's
+     table 101,626,144 rows x F2 f32, 813 MB; 2^17 hits a step; up
+     sample 2; 25 hits a ray) from phase 7's feeder checkpoint and the
+     smp_mesh.ply: 400 steps, the first 300 with the radiance field
+     frozen, a mesh update at step 200 between two 2-view evaluations.
+     K2, K4, K3 and the fused K1 must launch (K1 once a frozen step,
+     three times a joint one), no cell table gradient and no stream
+     entry. Gates: finite losses that fall, the eval PSNR (at least
+     FINETUNE_PSNR_GATE, and FINETUNE_GAIN_GATE above step 200's, before
+     the joint steps). Reports ms/step (frozen, joint), rendered
+     hits/s, rays a step, the wait on the host BVH's prefetcher and
+     Adam's time; then a frozen and a joint step on the kernel path
+     against the plain path. Phase 6 also holds K2 and K1 on that
+     joint step's field positions (the 813 MB table) and K3 on its
+     packed composite.
 Reduced sizes, against the scripts: the stage-1 feeder runs 300 steps at
 2^18 samples (run_nerfsynthetic.sh: 20,000 at 2^20); stage 2 runs 300
 of its 25,000 steps; the export is 256^3 (the CLI's default 1024^3);
+stage 4 runs 400 of its 10,000 steps with a mesh update every 200
+(the script: 2000) and evaluates 2 views;
 the views are 4 fixture views of 256^2 (the scripts: nerf-synthetic
 chair). The field, the NGP and the 2^18 stage-2 budget run at the
 scripts' widths.
@@ -85,6 +112,7 @@ and the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -357,7 +385,10 @@ class FixtureViews:
     across all views with a seeded numpy generator, as SubjectLoader
     draws them). Poses and camera rays follow
     quadraturefields_tpu_torch.data.fixture; pixels are the analytic
-    scene rendered at a 2e-2 step on white."""
+    scene rendered at a 2e-2 step on white. `upsampled(u)` gives the
+    same views in SubjectLoader's upsample mode (stage 4): rays on a
+    grid u times finer (focal and size times u), each pixel of the
+    rendered image shared by its u x u rays (index y // u, x // u)."""
 
     def __init__(self, n_views=4, res=256, fov_deg=50.0, seed=2,
                  num_rays=4096):
@@ -366,35 +397,48 @@ class FixtureViews:
             _look_at_poses,
             render_fixture_view,
         )
-        from quadraturefields_tpu_torch.data.nerf_synthetic import Rays
 
-        self._rays = Rays
         scene = FixtureScene()
-        focal = 0.5 * res / np.tan(0.5 * np.deg2rad(fov_deg))
-        self.HEIGHT = self.WIDTH = res
-        x, y = np.meshgrid(np.arange(res, dtype=np.float32),
-                           np.arange(res, dtype=np.float32), indexing="xy")
-        dirs_cam = np.stack([(x - res / 2.0 + 0.5) / focal,
-                             -(y - res / 2.0 + 0.5) / focal,
-                             -np.ones_like(x)], axis=-1).reshape(-1, 3)
-        self.views = []
-        for c2w in _look_at_poses(n_views, seed=seed):
-            dirs = dirs_cam @ c2w[:3, :3].T
-            dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-            origins = np.broadcast_to(c2w[:3, 3], dirs.shape)
-            rgb, _ = render_fixture_view(scene, c2w, res, focal, step=2e-2)
-            self.views.append({
-                "pixels": np.clip(rgb, 0, 1).reshape(-1, 3)
-                .astype(np.float32),
-                "rays": Rays(origins.astype(np.float32),
-                             dirs.astype(np.float32)),
-                "color_bkgd": np.ones(3, np.float32),
-            })
-        self._pixels = np.stack([v["pixels"] for v in self.views])
-        self._origins = np.stack([v["rays"].origins for v in self.views])
-        self._dirs = np.stack([v["rays"].viewdirs for v in self.views])
+        self.res, self.seed, self.u = res, seed, 1
+        self.focal = 0.5 * res / np.tan(0.5 * np.deg2rad(fov_deg))
+        self.poses = list(_look_at_poses(n_views, seed=seed))
+        self._pixels = np.stack([
+            np.clip(render_fixture_view(scene, c2w, res, self.focal,
+                                        step=2e-2)[0], 0, 1)
+            .reshape(-1, 3).astype(np.float32) for c2w in self.poses])
+        self._set_rays(1)
         self.num_rays = num_rays
         self.rng = np.random.default_rng(seed)
+
+    def _set_rays(self, u: int):
+        from quadraturefields_tpu_torch.data.nerf_synthetic import Rays
+
+        self._rays, self.u = Rays, u
+        w, focal = self.res * u, self.focal * u
+        self.HEIGHT = self.WIDTH = w
+        x, y = np.meshgrid(np.arange(w, dtype=np.float32),
+                           np.arange(w, dtype=np.float32), indexing="xy")
+        dirs_cam = np.stack([(x - w / 2.0 + 0.5) / focal,
+                             -(y - w / 2.0 + 0.5) / focal,
+                             -np.ones_like(x)], axis=-1).reshape(-1, 3)
+        origins, dirs = [], []
+        for c2w in self.poses:
+            d = dirs_cam @ c2w[:3, :3].T
+            dirs.append(d / np.linalg.norm(d, axis=-1, keepdims=True))
+            origins.append(np.broadcast_to(c2w[:3, 3], d.shape))
+        self._origins = np.stack(origins).astype(np.float32)
+        self._dirs = np.stack(dirs).astype(np.float32)
+        self.views = [{"pixels": self._pixels[i],
+                       "rays": Rays(self._origins[i], self._dirs[i]),
+                       "color_bkgd": np.ones(3, np.float32)}
+                      for i in range(len(self.poses))]
+
+    def upsampled(self, u: int, num_rays: int = 1024) -> "FixtureViews":
+        other = copy.copy(self)  # shares the poses and rendered pixels
+        other._set_rays(u)
+        other.num_rays = num_rays
+        other.rng = np.random.default_rng(self.seed)
+        return other
 
     def __len__(self):
         return len(self.views)
@@ -410,11 +454,12 @@ class FixtureViews:
         image_id = self.rng.integers(0, len(self.views), size=n)
         x = self.rng.integers(0, self.WIDTH, size=n)
         y = self.rng.integers(0, self.HEIGHT, size=n)
-        pix = y * self.WIDTH + x
+        ray = y * self.WIDTH + x
+        pix = (y // self.u) * self.res + x // self.u
         return {
             "pixels": self._pixels[image_id, pix],
-            "rays": self._rays(self._origins[image_id, pix],
-                               self._dirs[image_id, pix]),
+            "rays": self._rays(self._origins[image_id, ray],
+                               self._dirs[image_id, ray]),
             "color_bkgd": np.ones(3, np.float32),
         }
 
@@ -1252,6 +1297,29 @@ def profile_steps(torch, step, card, n_steps=10, label="step"):
 # the sphere: JAX 1.925, the port 1.967. JAX reaches 2 on neither, so
 # each gate is half of JAX's: 0.73 and 0.96.
 FIELD_LOSS_GATE = 0.8
+
+# phase 8's stage-3 arguments: run_nerfsynthetic_mc.sh's (sigma,
+# include_grad, omega, thres, axis, combine, grad_thres, density_thres),
+# then downsample_mesh's vx. A CPU run of both packages at
+# tests/test_pipeline_full.py's settings (tests/test_torch_stage4.py
+# test_stage34_quality_gates_on_the_cpu) found a surface on the fixture
+# with them: JAX 91,934 quadrature faces (92,234 with the density
+# surface), the port 103,814 (103,982), so the script's thresholds are
+# kept. The mesh's median radius in world units must lie in
+# STAGE3_RADIUS, the pipeline test's bounds (JAX 0.744, the port 0.768).
+# The stage-4 eval PSNR gate is JAX's floor of 14 dB
+# (test_pipeline_full.py:151-165); that CPU run reached JAX 17.757 dB,
+# the port 17.542 dB. The frozen steps leave the render where the mesh
+# puts it (18.91-19.13 dB at step 200 on the H100, three smoke runs)
+# and the 100 joint steps lift it by 11.45-12.92 dB (to 30.36-32.05),
+# so the final evaluation must also gain FINETUNE_GAIN_GATE over the
+# one at step 200: half the least gain seen, which 100 joint steps that
+# did nothing (an rf never updated) cannot pass.
+STAGE3_ARGS = ("100.0", "True", "100", "0", "0", "True", "0.01", "10.0",
+               "150")
+STAGE3_RADIUS = (0.3, 0.8)
+FINETUNE_PSNR_GATE = 14.0
+FINETUNE_GAIN_GATE = 5.5
 FIELD_SHELL_GATE = 0.73
 FIELD_INTERIOR_GATE = 0.96
 
@@ -1502,7 +1570,6 @@ def field_slice(torch, kernels, card, views, captured, report,
         check(grads.shape == (export_size,) * 3 and grads.dtype == np.float16,
               f"the {export_size}^3 export wrote {grads.shape} {grads.dtype}")
         del grads
-        shutil.rmtree(big)
         out[f"export_{export_size}"] = dict(
             s=big_s, points=2 * points, points_per_s=2 * points / big_s)
         print(f"export {export_size}^3 (the same field): {big_s:.3f} s for "
@@ -1525,6 +1592,387 @@ def field_slice(torch, kernels, card, views, captured, report,
     print(f"Adam over the field's {n_params} parameters: {out['adam_ms']:.4f}"
           f" ms a step, bound {out['adam_bound_ms']:.4f} ms [{card}]")
     report["train_field"] = out
+    del trainer, leaves
+    torch.cuda.empty_cache()
+    return launches, root, ckpt, big if export_size else None
+
+
+def stage3_slice(torch, card, field_dir, label):
+    """Phase 8's stage 3 on a stage-2 export: the port's marching_cubes
+    and downsample_mesh CLIs with STAGE3_ARGS, the wall split into the
+    device filters (from the blur's start to the first isosurface,
+    which waits for the surface's copy to the host), marching
+    tetrahedra, the files written and the decimation. Gates: a
+    non-empty mesh whose median radius (world) lies in STAGE3_RADIUS,
+    an smp_mesh with fewer vertices, the three files. Returns the
+    readings."""
+    from quadraturefields_tpu_torch.cli import downsample_mesh as cli_ds
+    from quadraturefields_tpu_torch.cli import marching_cubes as cli_mc
+    from quadraturefields_tpu_torch.geometry import extract as ex
+
+    marks, spans = {}, {"marching_tets": 0.0, "ply": 0.0, "decimate": 0.0}
+
+    def timed(name, real, first=None):
+        def fn(*args, **kw):
+            if first and first not in marks:
+                marks[first] = time.perf_counter()
+            t = time.perf_counter()
+            out = real(*args, **kw)
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return fn
+
+    def blur(*args, **kw):
+        marks.setdefault("filters_start", time.perf_counter())
+        return real_blur(*args, **kw)
+
+    real_blur = ex.gaussian_smooth_3d
+    faces = []
+
+    def isosurface(*args, **kw):
+        out = real_mt(*args, **kw)
+        faces.append(out[1].shape[0])
+        return out
+
+    real_mt = ex.marching_tetrahedra
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(ex, "gaussian_smooth_3d", blur), \
+            mock.patch.object(ex, "marching_tetrahedra", timed(
+                "marching_tets", isosurface, first="filters_end")), \
+            mock.patch.object(ex, "save_ply", timed("ply", ex.save_ply)), \
+            mock.patch.object(ex, "decimate_vertex_clustering", timed(
+                "decimate", ex.decimate_vertex_clustering)):
+        mesh = cli_mc.main([field_dir, *STAGE3_ARGS[:8]])
+        t1 = time.perf_counter()
+        smp = cli_ds.main([os.path.join(field_dir, "mesh.ply"),
+                           STAGE3_ARGS[8]])
+    t2 = time.perf_counter()
+    filters = marks["filters_end"] - marks["filters_start"]
+    radius = float(np.median(np.linalg.norm(mesh.vertices * 1.5, axis=1)))
+    out = dict(grid=int(np.load(os.path.join(field_dir, "grids_valid.npy"),
+                                mmap_mode="r").shape[0]),
+               marching_cubes_s=t1 - t0, filters_s=filters,
+               marching_tets_s=spans["marching_tets"],
+               ply_s=spans["ply"], downsample_s=t2 - t1,
+               decimate_s=spans["decimate"],
+               quad_faces=faces[0], density_faces=faces[1],
+               faces=int(mesh.faces.shape[0]),
+               vertices=int(mesh.vertices.shape[0]),
+               smp_faces=int(smp.faces.shape[0]),
+               smp_vertices=int(smp.vertices.shape[0]),
+               median_radius=radius)
+    print(f"stage 3 ({label}, {out['grid']}^3 grids, args {STAGE3_ARGS}): "
+          f"marching_cubes {out['marching_cubes_s']:.3f} s (device filters "
+          f"{filters:.3f} s, marching tetrahedra {spans['marching_tets']:.3f}"
+          f" s, ply {spans['ply']:.3f} s), downsample_mesh "
+          f"{out['downsample_s']:.3f} s (decimation {spans['decimate']:.3f}"
+          f" s); faces: quadrature {faces[0]}, density {faces[1]}, "
+          f"mesh.ply {out['faces']} ({out['vertices']} vertices), "
+          f"smp_mesh.ply {out['smp_faces']} ({out['smp_vertices']} "
+          f"vertices); median radius {radius:.4f} (gate {STAGE3_RADIUS}) "
+          f"[{card}]")
+    check(out["faces"] > 0, f"stage 3 ({label}) extracted no surface")
+    check(STAGE3_RADIUS[0] < radius < STAGE3_RADIUS[1],
+          f"stage-3 mesh ({label}) off the fixture sphere: {radius}")
+    check(out["smp_vertices"] < out["vertices"],
+          "smp_mesh.ply has no fewer vertices than mesh.ply")
+    for name in ("mesh.ply", "mesh_nerf.ply", "smp_mesh.ply"):
+        check(os.path.exists(os.path.join(field_dir, name)),
+              f"stage 3 wrote no {name}")
+    return out
+
+
+def finetune_step_inputs(torch, trainer, views):
+    """One stage-4 step's inputs: a batch of `views`, its hits cast and
+    packed by the trainer's BVH, sliced to their bucket, and the step's
+    noise from the trainer's generator."""
+    batch = views.fetch_train_batch()
+    o, d = batch["rays"]
+    item = (batch, *trainer.mesh_intersect.intersect_packed(
+        o, d, trainer.cfg.pack_cap))
+    batch, hit_args = trainer._hit_args(item)
+    dev = trainer.device
+    tb = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+          for a in (o, d, batch["pixels"], batch["color_bkgd"])]
+    n = tb[0].shape[0]
+    t_jitter = torch.rand((n,), generator=trainer.generator, device=dev)
+    bary = torch.rand((n, trainer.cfg.max_hits, 3),
+                      generator=trainer.generator, device=dev)
+    return (*tb, hit_args, t_jitter, bary)
+
+
+def finetune_step_grads(torch, trainer, inputs, freeze):
+    """step_grads of one stage-4 step over the rf's and the field's
+    leaves (zeros where the loss does not reach: the rf when frozen)."""
+    return step_grads(torch, trainer.params, lambda: trainer._loss_fn(
+        trainer.params, *inputs, freeze)[0])
+
+
+def compare_finetune_step(torch, trainer, kernels, inputs, freeze):
+    """One stage-4 step, kernel path against plain path, held to
+    compare_step's rules: the loss within 1e-5 relative; each K1 output
+    of the kernel-path step (the field's and, joint, the NGP's at the
+    hits and at the twin's samples) within
+    1e-5 * max |want| of the plain version summed in float64 on its own
+    inputs; the rf's gradients (bf16 MLPs) within 8 times the plain
+    path's own spread over three reruns, and at least 2^-8; the field's
+    (f32) within 1e-4 of max of the plain path's, or 8 times the plain
+    path's own spread over its leaves where that is larger (a joint
+    step, whose field gradient comes through the bf16 NGP)."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
+
+    calls, kernel = [], hg.table_grad_kernel
+
+    def recording(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    with mock.patch.object(hg, "table_grad_kernel", recording):
+        loss_k, grads_k = finetune_step_grads(torch, trainer, inputs, freeze)
+    before = {k.name: k.launches for k in kernels}
+    with plain_path():
+        loss_p, grads_p = finetune_step_grads(torch, trainer, inputs, freeze)
+        reruns = [finetune_step_grads(torch, trainer, inputs, freeze)[1]
+                  for _ in range(3)]
+    check({k.name: k.launches for k in kernels} == before,
+          "the plain-path stage-4 step launched a kernel")
+    check(len(calls) == (1 if freeze else 3),
+          f"{len(calls)} calls of K1 in one {'frozen' if freeze else 'joint'}"
+          f" stage-4 step")
+    k1_errs = []
+    for args, got in calls:
+        want = hg.table_grad_plain(*as_f64(args))
+        k1_errs.append(float((got - want).abs().max() / want.abs().max()))
+        del want
+    del calls
+
+    def rel(a, b):
+        return [float((x - y).abs().max() / y.abs().max())
+                if float(y.abs().max()) > 0 else float(x.abs().max())
+                for x, y in zip(a, b)]
+
+    n_rf = len(_leaves(trainer.params["rf"]))
+    errs = rel(grads_k, grads_p)
+    spreads = [max(leaf) for leaf in zip(*(rel(r, grads_p) for r in reruns))]
+    rf_limit = max(8 * max(spreads[:n_rf]), 2**-8)
+    # a joint step's field gradient passes through the NGP's bf16 MLPs
+    # at the deformed hits and the plain composite's index_add_ atomics:
+    # the plain path moves it by up to ~1.6e-4 of max between reruns
+    field_limit = max(8 * max(spreads[n_rf:]), 1e-4)
+    limits = [rf_limit] * n_rf + [field_limit] * (len(errs) - n_rf)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    label = "frozen" if freeze else "joint"
+    print(f"one {label} stage-4 step, kernel path vs plain path: loss "
+          f"{loss_k} vs {loss_p} (relative {loss_rel}, limit 1e-5); K1 "
+          f"outputs vs float64 plain sums, same inputs: {k1_errs} of max "
+          f"(limit 1e-5); gradient error / max |grad| per leaf (rf first) "
+          f"{errs} (limits {limits}); plain path vs itself, largest of "
+          f"three reruns per leaf {spreads}")
+    check(loss_rel <= 1e-5, f"kernel-path stage-4 loss disagrees: {loss_rel}")
+    check(all(e <= 1e-5 for e in k1_errs),
+          f"K1 in the stage-4 step disagrees: {k1_errs}")
+    check(all(e <= lim for e, lim in zip(errs, limits)),
+          f"kernel-path stage-4 gradients disagree: {errs}")
+    return dict(loss_rel=loss_rel, k1_rel=k1_errs, grad_rel=errs,
+                rf_limit=rf_limit, field_limit=field_limit)
+
+
+def finetune_slice(torch, kernels, card, views, captured, report, root,
+                   ckpt, big_export, profile: bool):
+    """Phase 8: stage 3 on phase 7's 256^3 export (and on its 1024^3
+    export with --export 1024), then stage 4 at
+    run_nerfsynthetic_finetune.sh's flags from phase 7's feeder
+    checkpoint and the stage-3 smp_mesh.ply: Stage4Trainer.train for
+    400 steps (300 frozen), a mesh update at step 200 between two
+    2-view evaluations, the final update, then an evaluation. K2, K4, K3
+    and K1 must launch (K1 once a frozen step, into the deformation
+    table; a joint step adds the NGP's at the hits and at the twin's
+    samples), no
+    cell table gradient and no stream entry. Gates: finite losses whose
+    last-20 mean is below the first-20 mean, the eval PSNR at least
+    FINETUNE_PSNR_GATE and at least FINETUNE_GAIN_GATE above the
+    evaluation at step 200. Reports ms/step (frozen over steps 150-300,
+    joint over 300-400), rendered hits/s, rays a step and the wait on
+    the prefetcher; then a frozen and a joint step on the kernel path
+    against the plain path, and (for phase 6) one step's field encode,
+    field table gradient and packed composite. Fills
+    report["train_finetune"] and returns the path's launches."""
+    from quadraturefields_tpu_torch.geometry.intersect import HitPrefetcher
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.render import quadrature
+    from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
+    from quadraturefields_tpu_torch.train.stage4_finetune import (
+        Stage4Config,
+        Stage4Trainer,
+    )
+
+    field_dir = os.path.join(root, "results", "fixture", "field")
+    out = {"stage3": stage3_slice(torch, card, field_dir, "256^3 export")}
+    if big_export:
+        out["stage3_1024"] = stage3_slice(torch, card, big_export,
+                                          "1024^3 export")
+        shutil.rmtree(big_export)
+
+    # run_nerfsynthetic_finetune.sh: --scaling 0.0434 --up_sample 2
+    # --voxel_size 150 --max_hits 25 --num_lobes 0 --num_layers 2
+    # --log2_hashmap_size 19 --batch_size 17 --scale 1.5; 400 of its
+    # 10,000 steps (300 frozen; steps 0-399, max_steps 399, as train()
+    # runs max_steps + 1), a mesh update every 200 steps (2000)
+    cfg = Stage4Config(
+        root=root, scene="fixture", ckpt_path=ckpt,
+        mesh_path=os.path.join(field_dir, "smp_mesh.ply"), scaling=0.0434,
+        up_sample=2, voxel_size=150, max_hits=25, num_lobes=0, num_layers=2,
+        log2_hashmap_size=19, batch_size_log2=17, scale=1.5, max_steps=399,
+        mesh_update_every=200, eval_views=2, log_every=50,
+        ckpt_every=10**9)
+    up = views.upsampled(cfg.up_sample, cfg.init_batch_size)
+    trainer = Stage4Trainer(cfg, train_dataset=up, test_dataset=up)
+    fgrid = trainer.field_cfg.hashgrid
+    e = fgrid.total_entries
+    check(e == 101_626_144, f"the deformation field table has {e} rows")
+    print(f"deformation field: {trainer.field_cfg}; table {e} rows x "
+          f"{fgrid.n_features} f32 ({e * fgrid.n_features * 4 / 1e6:.1f} "
+          f"MB); mesh {trainer.mesh_intersect.n_faces} faces; views "
+          f"{len(up)} x {up.HEIGHT}x{up.WIDTH} rays on {views.res}^2 pixels")
+
+    k1 = hg.ENCODE_BWD_KERNEL
+    record, evals, waits = [], [], []
+    one_step, evaluate = trainer.train_one_step, trainer.evaluate
+    real_next = trainer.prefetcher.next
+
+    def timed_next():
+        t = time.perf_counter()
+        item = real_next()
+        waits.append(time.perf_counter() - t)
+        return item
+
+    def timed_step():
+        rays, k1_before = up.num_rays, k1.launches
+        t = time.perf_counter()
+        loss, nh, mse = one_step()
+        loss = float(loss)  # waits for the step
+        record.append((time.perf_counter() - t, rays, nh, loss,
+                       k1.launches - k1_before))
+        return loss, nh, mse
+
+    def recorded_evaluate(*args, **kw):
+        metrics = evaluate(*args, **kw)
+        evals.append(metrics)
+        return metrics
+
+    trainer.prefetcher.next = timed_next
+    trainer.train_one_step, trainer.evaluate = timed_step, recorded_evaluate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = count_launches(kernels, trainer.train)
+    train_s = time.perf_counter() - t0
+    trainer.train_one_step, trainer.evaluate = one_step, evaluate
+    n_steps = len(record)
+    print(f"train_finetune: {n_steps} steps + 2 evaluations + 2 mesh "
+          f"updates + checkpoint in {train_s:.2f} s; kernel launches "
+          f"{launches}")
+    path_kernels = (hg.ENCODE_KERNEL.name, "occ_bits", "segment_sum",
+                    k1.name)
+    for name in path_kernels:
+        check(launches[name] > 0, f"train_finetune never launched {name}")
+    others = {k: n for k, n in launches.items() if k not in path_kernels}
+    check(not any(others.values()), f"train_finetune launched {others}")
+    frozen = cfg.freeze_rf_steps
+    k1_frozen = [r[4] for r in record[:frozen]]
+    k1_joint = [r[4] for r in record[frozen:]]
+    print(f"K1 launches a step: frozen {sorted(set(k1_frozen))} over "
+          f"{len(k1_frozen)} steps, joint {sorted(set(k1_joint))} over "
+          f"{len(k1_joint)} steps")
+    check(set(k1_frozen) == {1} and set(k1_joint) == {3},
+          "K1 did not launch once a frozen and three times a joint step")
+
+    losses = [r[3] for r in record]
+    check(all(np.isfinite(losses)), "non-finite stage-4 loss")
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    print(f"stage-4 loss: mean of the first 20 steps {first:.6f}, of the "
+          f"last 20 {last:.6f} (ratio {last / first:.4f}, must be < 1)")
+    check(last < first, "the stage-4 loss did not fall")
+    final = trainer.evaluate(up, n_views=cfg.eval_views)
+    gain = final["psnr"] - evals[0]["psnr"]
+    print(f"evaluations ({cfg.eval_views} views, box-downsampled from "
+          f"{up.HEIGHT}^2): step 200 before the mesh update {evals[0]}, "
+          f"after {evals[1]}; after training {final} (PSNR gate "
+          f"{FINETUNE_PSNR_GATE}); gain over step 200 {gain:.4f} dB (gate "
+          f"{FINETUNE_GAIN_GATE})")
+    check(final["psnr"] >= FINETUNE_PSNR_GATE,
+          f"stage-4 eval PSNR {final['psnr']} < {FINETUNE_PSNR_GATE}")
+    check(gain >= FINETUNE_GAIN_GATE,
+          f"the joint steps lifted the eval PSNR by {gain} dB < "
+          f"{FINETUNE_GAIN_GATE}")
+
+    def window(a, b):
+        rows = record[a:b]
+        s = sum(r[0] for r in rows)
+        hits = sum(min(r[2], cfg.pack_cap) for r in rows)
+        return dict(ms_per_step=s / len(rows) * 1e3,
+                    rendered_hits_per_s=hits / s,
+                    rays_per_step=sum(r[1] for r in rows) / len(rows),
+                    hits_per_step=hits / len(rows),
+                    prefetch_wait_ms=float(np.mean(waits[a:b])) * 1e3)
+
+    out.update(
+        steps=n_steps, frozen=window(150, frozen),
+        joint=window(frozen, n_steps), loss_first20=first, loss_last20=last,
+        eval_before_update=evals[0], eval_after_update=evals[1],
+        eval_final=final, psnr_gain=gain, launches=launches,
+        k1_per_step={"frozen": k1_frozen[0], "joint": k1_joint[0]},
+        train_s=train_s, card=card)
+    for label in ("frozen", "joint"):
+        w = out[label]
+        print(f"stage-4 training (train_finetune), {label} steps: "
+              f"{w['ms_per_step']:.3f} ms/step, "
+              f"{w['rendered_hits_per_s']:.1f} rendered hits/s, "
+              f"{w['rays_per_step']:.1f} rays and {w['hits_per_step']:.1f}"
+              f" hits a step, prefetcher wait {w['prefetch_wait_ms']:.3f} "
+              f"ms a step [{card}]")
+
+    # a frozen and a joint step on the kernel path against the plain
+    # path; the joint step's field encode, field table gradient and
+    # packed composite go to phase 6
+    for freeze in (True, False):
+        inputs = finetune_step_inputs(torch, trainer, up)
+        if not freeze:
+            with capture(hg, "encode_kernel", captured, "finetune_step",
+                         when=lambda table, x, c: c == fgrid), \
+                    capture(hg, "table_grad_kernel", captured,
+                            "finetune_grad_step",
+                            when=lambda x, g, c: c == fgrid), \
+                    capture(quadrature, "presorted_row_segment_sum_vjp",
+                            captured, "finetune_composite"):
+                finetune_step_grads(torch, trainer, inputs, freeze)
+        out["compare_" + ("frozen" if freeze else "joint")] = \
+            compare_finetune_step(torch, trainer, kernels, inputs, freeze)
+        del inputs
+
+    if profile:
+        trainer.prefetcher = HitPrefetcher(
+            up.fetch_train_batch, trainer.mesh_intersect, depth=2,
+            packed_cap=cfg.pack_cap)
+        try:
+            profile_steps(torch, trainer.train_one_step, card,
+                          label="stage-4 joint step (train_finetune)")
+        finally:
+            trainer.prefetcher.stop()
+    leaves = _leaves(trainer.params)
+    for p in leaves:
+        p.grad = torch.zeros_like(p)
+    n_params = sum(p.numel() for p in leaves)
+    out["adam_ms"] = cuda_ms(trainer.optimizer.step, iters=5, warmup=1)
+    out["adam_bound_ms"] = bound(7 * 4 * n_params, 0)["bound_ms"]
+    print(f"Adam over the rf's and the field's {n_params} parameters: "
+          f"{out['adam_ms']:.4f} ms a step, bound "
+          f"{out['adam_bound_ms']:.4f} ms [{card}]")
+    report["train_finetune"] = out
+    del trainer, leaves
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1546,14 +1994,16 @@ def time_captured(torch, report, captured, card, baseline=None):
 
     for key in ("eval_chunk", "train_step", "corner_grad_step", "cell_step",
                 "cell_f32_step", "cell_bf16pair_step", "field_step",
-                "field_grad_step"):
+                "field_grad_step", "finetune_step", "finetune_grad_step",
+                "finetune_composite"):
         check(key in captured, f"no kernel call captured in {key}")
     table, x, cfg = captured["eval_chunk"]
     inputs = {"eval_chunk": (table, x, cfg),
               "eval_chunk_valid": (table,
                                    x[:captured["eval_chunk_valid"]], cfg),
               "train_step": captured["train_step"],
-              "field_step": captured["field_step"]}
+              "field_step": captured["field_step"],
+              "finetune_step": captured["finetune_step"]}
     enc = report["hashgrid_encode"]
     for path, (table, x, path_cfg) in inputs.items():
         distinct = int(torch.unique(x, dim=0).shape[0])
@@ -1676,6 +2126,61 @@ def time_captured(torch, report, captured, card, baseline=None):
     print(f"cell pair grad (K6) on the same inputs, the route it replaced: "
           f"{entry['route_ms']:.4f} ms [{card}]")
     report["cell_pair_grad_x"]["captured"] = {"cell_bf16pair_step": entry}
+    time_finetune_captured(torch, report, captured, card, table_grad)
+
+
+
+def time_finetune_captured(torch, report, captured, card, table_grad):
+    """Phase 6's stage-4 part: K1 (table_grad, time_captured's helper)
+    on the stage-4 step's field positions and cotangent, and K3 on its
+    packed composite, against their plain versions."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+
+    k1 = report["hashgrid_encode_bwd"]
+    # K1 on the stage-4 step's field positions and cotangent into the
+    # 813 MB deformation table, its zeroing alone too
+    x, g, cfg = captured["finetune_grad_step"]
+    entry = table_grad(
+        "table grad (K1 fused) tet on one stage-4 step's x and g, "
+        f"deformation table {cfg.total_entries} rows", hg.table_grad_kernel,
+        hg.table_grad_plain, x, g, cfg,
+        cfg.total_entries * cfg.n_features * 4, cfg.corners)
+    entry["memset_ms"] = cuda_ms(lambda: torch.zeros(
+        (cfg.total_entries, cfg.n_features), device=x.device))
+    print(f"the deformation gradient's zeroing alone ({cfg.total_entries} "
+          f"x {cfg.n_features} f32): {entry['memset_ms']:.4f} ms [{card}]")
+    k1["captured"]["finetune_step"] = entry
+    del x, g
+
+    # K3 on the stage-4 step's packed composite: the hits' 8-wide rows,
+    # keys = their ray (pad = n), into the step's rays
+    keys, vals, n_seg = captured["finetune_composite"]
+    vals = vals.contiguous()
+    m = keys.shape[0]
+    got = hs.segment_sum_kernel(keys, vals, n_seg)
+    want = hs.segment_sum_plain(keys, vals.double(), n_seg)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    del got, want
+    ms = cuda_ms(lambda: hs.segment_sum_kernel(keys, vals, n_seg))
+    plain_ms = cuda_ms(lambda: hs.segment_sum_plain(keys, vals, n_seg))
+    acc = torch.zeros((n_seg + 1, vals.shape[1]), device=vals.device)
+    keys_c = keys.long().clamp(0, n_seg)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, keys_c, vals))
+    valid = int((keys < n_seg).sum())
+    b = bound(m * 4 + m * 32 + n_seg * 32, valid * 8)
+    print(f"segment sum (K3) on one stage-4 step's packed composite: {m} "
+          f"rows ({valid} hits, the rest pads) x 8 into {n_seg} rays: "
+          f"max_abs_err {err}, relative {rel} (limit 1e-5); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
+    check(rel <= 1e-5, f"segment sum on the stage-4 composite disagrees: "
+          f"{rel}")
+    report["segment_sum"].setdefault("captured", {})["finetune_step"] = dict(
+        rows=m, hits=valid, segments=n_seg, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, **b)
 
 
 def main() -> int:
@@ -1691,6 +2196,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     from quadraturefields_tpu_torch._cuda import build
+    from quadraturefields_tpu_torch.geometry.native import (
+        build as build_qfgeom,
+    )
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
@@ -1715,6 +2223,8 @@ def main() -> int:
     counted = kernels + list(streams.values())
     libraries = sorted({k.library for k in counted})
     jobs = [partial(build, lib) for lib in libraries]
+    # the host geometry library of phase 8 (g++), beside them
+    jobs.append(build_qfgeom)
     if baseline is not None:
         jobs += [k.load for k in baseline.kernels]
     t0 = time.perf_counter()
@@ -1722,7 +2232,7 @@ def main() -> int:
         list(pool.map(lambda job: job(), jobs))
     for k in counted:
         k.load()
-    print(f"built {', '.join(libraries)}"
+    print(f"built {', '.join(libraries)} and qfgeom"
           f"{' and the baseline' if baseline else ''} (one nvcc per "
           f"source, in parallel) in {time.perf_counter() - t0:.1f} s")
 
@@ -1795,9 +2305,15 @@ def main() -> int:
         "cell_pair_grad_x_kernel", hg.cell_pair_grad_x_plain)
 
     # phase 7: stage 2 at run_nerfsynthetic_field.sh's widths
-    field_launches = field_slice(
+    field_launches, root7, ckpt7, big7 = field_slice(
         torch, counted, card, views, captured, report, profile,
         int(args[args.index("--export") + 1]) if "--export" in args else 0)
+
+    # phase 8: stages 3 and 4 at run_nerfsynthetic_mc.sh's and
+    # run_nerfsynthetic_finetune.sh's flags, on phase 7's artifacts
+    finetune_launches = finetune_slice(
+        torch, counted, card, views, captured, report, root7, ckpt7, big7,
+        profile)
 
     time_captured(torch, report, captured, card, baseline)
 
@@ -1809,13 +2325,16 @@ def main() -> int:
     paths = {"eval": eval_launches, "train": train_launches,
              "train_cell": cell_launches, "train_cell_f32": f32_launches,
              "train_cell_bf16pair": pair_launches,
-             "train_field": field_launches}
+             "train_field": field_launches,
+             "train_finetune": finetune_launches}
     for name, stream in streams.items():
         report[name]["stream"]["launches_by_path"] = {
             p: n[stream.name] for p, n in paths.items()}
     report["cell_row_grad_x"]["also_replaces"] = (
         "quadraturefields_tpu/ops/hashgrid_sorted.py:116")
     print(json.dumps({"train_field": report["train_field"]}))
+    print(json.dumps({"train_finetune": report["train_finetune"]},
+                     default=float))
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

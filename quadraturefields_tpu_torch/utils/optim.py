@@ -40,12 +40,15 @@ def reference_lr_schedule(base_lr: float, max_steps: int,
 
 def make_ngp_optimizer(params, max_steps: int, lr: float = 1e-2,
                        eps: float = 1e-15, weight_decay: float = 1e-6,
-                       warmup_iters: int = 100, start_step: int = 0):
+                       warmup_iters: int = 100, start_step: int = 0,
+                       milestones=None):
     """(Adam over the leaf tensors `params`, its LambdaLR). Step the
     scheduler after each optimizer step, so update k uses schedule(k),
     as optax's update count does; `start_step` offsets k for a trainer
-    that is already past step 0."""
-    schedule = reference_lr_schedule(lr, max_steps, warmup_iters)
+    that is already past step 0. `warmup_iters` and `milestones` shape
+    the schedule (reference_lr_schedule)."""
+    schedule = reference_lr_schedule(lr, max_steps, warmup_iters,
+                                     milestones=milestones)
     opt = torch.optim.Adam(list(params), lr=lr, betas=(0.9, 0.999), eps=eps,
                            weight_decay=weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(

@@ -3,14 +3,17 @@
 Each test builds its kernel from csrc/ (nvcc, sm_90a) and compares it
 with the plain version on the same CUDA tensors, on the edge cases that
 random main-path inputs rarely reach: the encode, its fused table
-gradient (also on ray-ordered samples with a padded budget), the pair
+gradient (also on ray-ordered samples with a padded budget, and both on
+the stage-2 and stage-4 field tables, last rows included), the pair
 segment sum and K8's one-launch value-layout interface (also on
 ray-ordered streams whose lanes merge), the occupancy bits, the per-ray
-segment sum and the cell layout's table gradients K5, K6 and K7 (from
-their streams and fused from positions, alone and through the cell
-encode's backward). Without a card every test skips:
-a CUDA kernel has no CPU mode. The file imports no jax, so on a host
-without jax it runs without the repo's conftest:
+segment sum (also at the stage-4 packed composite's shape) and the cell
+layout's table gradients K5, K6 and K7 (from their streams and fused
+from positions, alone and through the cell encode's backward); and the
+stage-3 blur, whose convolutions must not take TF32 on the card. Without
+a card every test skips: a CUDA kernel has no CPU mode. The file
+imports no jax, so on a host without jax it runs without the repo's
+conftest:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
@@ -232,6 +235,110 @@ def test_encode_and_table_grad_at_the_field_table(dev, interp):
     want = hg.table_grad_plain(x, cot.double(), cfg)
     assert bool(want[-1].abs().sum() > 0)  # the last row is reached
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+def test_encode_and_table_grad_at_the_deformation_table(dev, interp):
+    """K2 and the fused K1 on the stage-4 deformation field's table
+    (run_nerfsynthetic_finetune.sh, Stage4Config.field_config(): log2_T
+    24, L16 F2, max_res 512 x 1.5, E = 101,626,144 rows, 813 MB), at a
+    step's width: 2 x 163,840 points (the hits and their barycentric
+    samples at the 2^17 budget's pack cap), uniform, on the cube's
+    corners and upper faces, and 4 points whose top-level corner hashes
+    to the last row. The encode tet
+    bit for bit and cube within 1e-5 of the plain version; K1 within
+    1e-5 of max of the plain sum in float64."""
+    from quadraturefields_tpu_torch.train.stage4_finetune import (
+        Stage4Config,
+    )
+
+    scfg = Stage4Config()
+    cfg = dataclasses.replace(scfg.field_config().hashgrid, interp=interp)
+    assert cfg.total_entries == 101_626_144
+    g = torch.Generator(device=dev).manual_seed(8)
+    n = 2 * int(scfg.pack_cap)
+    assert n == 327_680
+    x = torch.rand((n, 3), generator=g, device=dev)
+    x[:4096] = x[:4096].round()              # the cube's 8 corners
+    x[4096:8192, 2] = 1.0                    # an upper face
+    # the top levels are hashed (768^3 > 2^24 rows): the last row is
+    # reached by the points whose top-level corner hashes to it, ~1 in
+    # 4M uniform points; find a few and put them in
+    last = []
+    while sum(p.shape[0] for p in last) < 4:
+        cand = torch.rand((1 << 21, 3), generator=g, device=dev)
+        idx, _ = hg._corner_indices_weights(cand, cfg)
+        last.append(cand[(idx == cfg.total_entries - 1).any(dim=1)])
+    x[8192:8192 + 4] = torch.cat(last)[:4]
+    table = (torch.rand((cfg.total_entries, 2), generator=g, device=dev)
+             * 2 - 1).requires_grad_(True)
+    before = hg.ENCODE_KERNEL.launches, hg.ENCODE_BWD_KERNEL.launches
+    out = hg.hashgrid_encode(table, x, cfg)
+    want = hg.encode_plain(table.detach(), x, cfg)
+    err = float((out.detach() - want).abs().max())
+    assert err == 0.0 if interp == "tet" else err <= 1e-5
+    cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+    (got,) = torch.autograd.grad(out, table, cot)
+    torch.cuda.synchronize()
+    assert (hg.ENCODE_KERNEL.launches, hg.ENCODE_BWD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = hg.table_grad_plain(x, cot.double(), cfg)
+    assert bool(want[-1].abs().sum() > 0)  # the last row is reached
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_segment_sum_at_the_stage4_composite(dev):
+    """K3 through presorted_row_segment_sum_vjp at the stage-4 packed
+    composite's shape: 163,840 rows (the pack cap at 2^17), 131,072 hits
+    sorted by ray over 49,152 rays with 1-6 hits each and some rays
+    without any, the rest pad rows with key = n (dropped); 8-wide rows
+    whose last 3 columns are 0. The forward within 1e-5 of max of the
+    plain sum in float64, the backward (a gather) exactly the plain
+    version's, 0 on the pads."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    m, hits, n = 163_840, 131_072, 49_152
+    keys = torch.randint(0, n, (hits,), generator=g, device=dev)
+    keys = torch.cat([keys.sort().values,
+                      torch.full((m - hits,), n, device=dev)]).int()
+    vals = torch.rand((m, 8), generator=g, device=dev)
+    vals[:, 5:] = 0.0
+    vals.requires_grad_(True)
+    before = hs.SEGMENT_SUM_KERNEL.launches
+    got = hs.presorted_row_segment_sum_vjp(keys, vals, n)
+    torch.cuda.synchronize()
+    assert hs.SEGMENT_SUM_KERNEL.launches == before + 1
+    want = hs.segment_sum_plain(keys, vals.detach().double(), n)
+    assert float((got.detach() - want).abs().max()) \
+        <= 1e-5 * float(want.abs().max())
+    assert int((want[:, 3] == 0).sum()) > 0  # rays without hits
+    cot = torch.randn((n, 8), generator=g, device=dev)
+    (dv,) = torch.autograd.grad(got, vals, cot)
+    k = keys.long().clamp(0, n - 1)
+    want_dv = torch.where((keys < n)[:, None], cot[k], 0.0)
+    assert torch.equal(dv, want_dv)
+    assert not dv[hits:].any()
+
+
+def test_stage3_blur_takes_no_tf32(dev, monkeypatch):
+    """Stage 3's Gaussian blur on the card within 1e-6 of a float64 blur
+    on the host, with cuDNN's TF32 switch at its default (on): TF32's
+    10-bit mantissa would put ~1e-4 into a grid that sin(100 q) then
+    reads near its level set."""
+    import numpy as np
+    import torch.nn.functional as F
+    from quadraturefields_tpu_torch.geometry.extract import (
+        gaussian_kernel_1d, gaussian_smooth_3d)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    g = torch.Generator().manual_seed(3)
+    n = 96
+    x = torch.rand((n, n, n), generator=g) * 2 - 1
+    got = gaussian_smooth_3d(x.to(dev)).cpu()
+    k = torch.as_tensor(gaussian_kernel_1d().astype(np.float64))
+    want = x.double()
+    for axis in range(3):
+        p = F.pad(want.movedim(axis, -1), (2, 2))
+        want = sum(k[j] * p[..., j:j + n] for j in range(5)).movedim(-1, axis)
+    assert float((got - want).abs().max()) <= 1e-6
 
 
 def _ray_samples(g, n, n_pad, dev):
