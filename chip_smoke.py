@@ -9,9 +9,10 @@
                                       # at N^3 (the CLI's default: 1024),
                                       # and phase 8's stage 3 run on it
     python3 chip_smoke.py --baseline DIR
-        # and time K8's interface, K1's stream interface and K6's route of
-        # another checkout at DIR (e.g. a parent commit unpacked with
-        # `git archive`) beside this one's, in turns, on the same inputs
+        # and time K8's interface, K1's stream interface, K6's route and
+        # K3 of another checkout at DIR (e.g. a parent commit unpacked
+        # with `git archive`) beside this one's, in turns, on the same
+        # inputs
 
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
@@ -20,7 +21,10 @@ Phases (any failure raises and exits non-zero):
   2. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes, and time both (and the one-call library
      equivalent where there is one): the encode (K2), the occupancy
-     bits (K4), the per-ray segment sum (K3), the fused table gradient
+     bits (K4), the per-ray segment sum (K3: 2^20 rows at 120 a
+     segment, and 163,840 rows, the stage-4 pack cap, at 0.6, 2.5 and 8
+     a segment, with pads; each also for exact zeros in its empty
+     segments and a bit-identical rerun), the fused table gradient
      (K1) at 2^18 points, K1's stream interface at 16.8M contributions,
      K8's one-launch value-layout interface on the same stream, and the
      cell layout's table gradients K5, K6 and K7 at 8.4M contributions
@@ -58,8 +62,11 @@ Phases (any failure raises and exits non-zero):
      positions and cotangent of that corner step (K1, tet and cube; K8
      and K1's stream interface on its contributions in ray order), of
      the stage-2 and stage-4 steps (K1 into their tables, and the
-     zeroing alone), of one step of each cell path (K7, K5, K6), and the
-     stage-4 step's packed composite (K3, and index_add_);
+     zeroing alone), of one step of each cell path (K7, K5, K6); and K3
+     (against index_add_ of the same rows) on each path's composite: the
+     busiest eval chunk, a step of each stage-1 training path, a
+     stage-2 step, and the joint stage-4 step's volumetric twin and its
+     packed quadrature stream, each with its rows a segment;
   7. stage 2 ("train_field"): a stage-1 feeder with
      run_nerfsynthetic.sh's model flags (corner L16 F2 T2^19, mlp head,
      2 layers, scale 1.5, occ regulariser, occ_thres 0.01) trains 300
@@ -305,9 +312,12 @@ class Baseline:
     whose C interfaces they share, and the other checkout's interfaces
     built on them: K8's (PyTorch entries and bf16 casts, then the pair
     kernel) and K6's route (the lo/hi streams, then K6's stream
-    entry)."""
+    entry); and K3 through its first C interface (no lanes a segment)."""
 
     def __init__(self, root):
+        import ctypes
+        from types import SimpleNamespace
+
         from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
         csrc = Path(root) / "quadraturefields_tpu_torch" / "csrc"
@@ -317,7 +327,26 @@ class Baseline:
                                     hs.TABLE_GRAD_PAIRS_KERNEL, tag)
         self.pair = BaselineKernel(csrc, "cell_table_grad",
                                    hs.CELL_PAIR_GRAD_KERNEL, tag)
-        self.kernels = (self.pairs, self.pair)
+        first_segment_sum = SimpleNamespace(
+            symbol="qf_segment_sum",
+            argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+        self.segsum = BaselineKernel(csrc, "segment_sum", first_segment_sum,
+                                     tag)
+        self.kernels = (self.pairs, self.pair, self.segsum)
+
+    def segment_sum_fn(self, keys, vals, n_seg):
+        """K3 as the other checkout builds it, through its first C
+        interface (keys, vals, out, m, n_seg, rw)."""
+        import torch
+
+        from quadraturefields_tpu_torch._cuda import ptr
+
+        out = torch.empty((n_seg, vals.shape[1]), dtype=torch.float32,
+                          device=vals.device)
+        self.segsum.launch(vals.device, ptr(keys), ptr(vals), ptr(out),
+                           keys.shape[0], n_seg, vals.shape[1])
+        return out
 
     def pairs_fn(self, idx, v0, v1, n_entries):
         import torch
@@ -464,12 +493,72 @@ class FixtureViews:
         }
 
 
-def compare_kernels(torch, dev, report, baseline=None):
+def segment_sum_case(torch, label, keys, vals, n_seg, card, baseline=None):
+    """K3 on (keys, vals, n_seg): the rows a segment; the kernel within
+    1e-5 of max of the plain sum in float64, its segments without rows
+    exactly 0 and a second launch bit for bit the first; its time (with a
+    baseline, beside the other checkout's K3 in turns), the plain
+    version's, index_add_ of the same rows into zeros (the one PyTorch
+    call of K3's function, its yardstick) and the bound: the valid rows'
+    keys and values read once, the output written once, an add a value.
+    Returns the report entry."""
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+
+    m, rw = vals.shape
+    rows = torch.bincount(keys.long().clamp(0, n_seg),
+                          minlength=n_seg + 1)[:n_seg]
+    valid, longest = int(rows.sum()), int(rows.max())
+    got = hs.segment_sum_kernel(keys, vals, n_seg)
+    again = hs.segment_sum_kernel(keys, vals, n_seg)
+    want = hs.segment_sum_plain(keys, vals.double(), n_seg)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    empty_zero = not bool(got[rows == 0].any())
+    same_bits = bool(torch.equal(got, again))
+    del got, again, want
+    ms, res = timed(lambda: hs.segment_sum_kernel(keys, vals, n_seg),
+                    baseline and (lambda: baseline.segment_sum_fn(
+                        keys, vals, n_seg)))
+    plain_ms = cuda_ms(lambda: hs.segment_sum_plain(keys, vals, n_seg))
+    acc = torch.zeros((n_seg + 1, rw), device=vals.device)
+    keys_c = keys.long().clamp(0, n_seg)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, keys_c, vals))
+    del acc, keys_c
+    b = bound(valid * (4 + 4 * rw) + n_seg * 4 * rw, valid * rw)
+    lanes = hs.segment_group(m, n_seg)
+    print(f"segment sum (K3) on {label}: {m} rows x {rw}, {valid} valid, "
+          f"into {n_seg} segments: {valid / n_seg:.3f} rows a segment "
+          f"(at most {longest}), {lanes} lanes a segment; max_abs_err "
+          f"{err}, relative {err / max(scale, 1e-30)} (limit 1e-5), empty "
+          f"segments 0: {empty_zero}, rerun bit for bit: {same_bits}; "
+          f"kernel {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}), plain {plain_ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms; baseline {res} [{card}]")
+    check(err <= 1e-5 * scale, f"segment sum on {label} disagrees: {err}")
+    check(empty_zero, f"segment sum on {label}: an empty segment is not 0")
+    check(same_bits, f"segment sum on {label}: two launches differ")
+    return dict(rows=m, valid_rows=valid, segments=n_seg,
+                rows_a_segment=valid / n_seg, max_rows_a_segment=longest,
+                lanes=lanes, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **b, **res)
+
+
+def sorted_keys(torch, g, m, n_seg, n_pad):
+    """Sorted uniform keys of m - n_pad rows over n_seg segments, then
+    n_pad pad rows (key n_seg)."""
+    keys = torch.randint(0, n_seg, (m - n_pad,), generator=g,
+                         device=g.device)
+    return torch.cat([keys.sort().values,
+                      torch.full((n_pad,), n_seg, device=g.device)]).int()
+
+
+def compare_kernels(torch, dev, report, card, baseline=None):
     """Phase 2: each kernel against its plain version at main-path
     shapes. Fills report[name] with max_abs_err, ms, plain_ms,
     library_ms and the bound; with a baseline, the time of K8's
-    interface and of K1's stream entry there too (baseline_ms, timed in
-    turns with this checkout's)."""
+    interface, of K1's stream entry and of K3 there too (baseline_ms,
+    timed in turns with this checkout's)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
@@ -533,32 +622,24 @@ def compare_kernels(torch, dev, report, baseline=None):
     report["occ_bits"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               library_ms=None, **b)
 
-    # segment sum: 2^20 rows x 8 into 8192 segments + sentinel padding
-    m, n_seg = 1 << 20, 8192
-    n_real = m - m // 16
-    keys = torch.randint(0, n_seg, (n_real,), generator=g, device=dev)
-    keys = torch.cat([keys.sort().values,
-                      torch.full((m - n_real,), n_seg, device=dev)]).int()
+    # segment sum (K3): 2^20 rows x 8 into 8192 segments (1/16 pads,
+    # 120 rows a segment); then at the stage-4 pack cap, 163,840 rows
+    # (1/8 pads), at 0.6, 2.5 and 8 rows a segment
+    m = 1 << 20
+    keys = sorted_keys(torch, g, m, 8192, m // 16)
     vals = torch.randn((m, 8), generator=g, device=dev)
-    got = hs.segment_sum_kernel(keys, vals, n_seg)
-    want = hs.segment_sum_plain(keys, vals, n_seg)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    ms = cuda_ms(lambda: hs.segment_sum_kernel(keys, vals, n_seg))
-    plain_ms = cuda_ms(lambda: hs.segment_sum_plain(keys, vals, n_seg))
-    acc = torch.zeros((n_seg + 1, 8), device=dev)
-    keys_c = keys.long().clamp(0, n_seg)
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, keys_c, vals))
-    b = bound(m * 4 + m * 32 + n_seg * 32, m * 8)
-    print(f"segment sum: {m} rows x 8 into {n_seg} segments: max_abs_err "
-          f"{err}, relative {rel} (limit 1e-5); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    check(rel <= 1e-5, f"segment sum disagrees: {rel}")
-    report["segment_sum"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, **b)
-    del keys, vals, acc, keys_c
+    report["segment_sum"] = segment_sum_case(
+        torch, "2^20 uniform rows", keys, vals, 8192, card, baseline)
+    shapes = report["segment_sum"]["shapes"] = {}
+    m, n_pad = 163_840, 20_480
+    vals = torch.randn((m, 8), generator=g, device=dev)
+    for per in (0.6, 2.5, 8.0):
+        n_seg = round((m - n_pad) / per)
+        keys = sorted_keys(torch, g, m, n_seg, n_pad)
+        shapes[f"{per} rows a segment"] = segment_sum_case(
+            torch, f"the pack cap's rows at {per} a segment", keys, vals,
+            n_seg, card, baseline)
+    del keys, vals
 
     # fused table gradient (K1): 2^18 points, L16 F2 T2^19, g ~ N(0,1);
     # atomics add in a varying order: limit 1e-5 * max |want|, want the
@@ -915,9 +996,11 @@ def count_launches(kernels, fn):
 
 def render_slice(torch, kernels, card, views, captured, profile: bool):
     """Phase 3: the stage-1 evaluation path at full width. The encode's
-    arguments in the eval chunk with the most valid samples land in
-    captured["eval_chunk"], their count in captured["eval_chunk_valid"]."""
+    and K3's arguments in the eval chunk with the most valid samples land
+    in captured["eval_chunk"] and ["eval_composite"], their count in
+    captured["eval_chunk_valid"]."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.train.stage1_ngp import (
         Stage1Config,
         Stage1Trainer,
@@ -957,7 +1040,8 @@ def render_slice(torch, kernels, card, views, captured, profile: bool):
             d = torch.as_tensor(rays.viewdirs, device=trainer.device)
             for s in range(0, o.shape[0], cfg.eval_chunk):
                 chunk = {}
-                with capture(hg, "encode_kernel", chunk, "args"):
+                with capture(hg, "encode_kernel", chunk, "args"), \
+                        capture(hs, "segment_sum_kernel", chunk, "k3"):
                     rgb, _, _, nv = trainer._eval_render_impl(
                         trainer.params, trainer.occ_state,
                         o[s:s + cfg.eval_chunk], d[s:s + cfg.eval_chunk])
@@ -966,11 +1050,12 @@ def render_slice(torch, kernels, card, views, captured, profile: bool):
                 check(bool(torch.isfinite(rgb).all()), "non-finite rgb")
                 samples += nv
                 if nv > best[0]:
-                    best = (nv, chunk["args"])
+                    best = (nv, chunk["args"], chunk["k3"])
     check(samples > 0, "no valid samples")
     # the encode's arguments in the chunk with the most valid samples,
     # which come first (the budget's padding follows them)
     captured["eval_chunk"], captured["eval_chunk_valid"] = best[1], best[0]
+    captured["eval_composite"] = best[2]
     print(f"eval chunk captured for phase 6: {best[0]} valid samples")
     n_rays = len(views) * views.HEIGHT * views.WIDTH
     print(f"stage-1 one-shot eval, {n_rays} rays, {samples} samples: "
@@ -1053,12 +1138,13 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
     path `name`). Every kernel named in `must_launch` must launch in the
     run; `table_grad` names the table-gradient kernel whose output
     compare_step holds against a float64 sum. The arguments of the
-    encode and of its table gradient (corner layout) and of the fused
-    cell table gradients (K7, K5, K6) in one training step land in
-    captured["train_step"], ["corner_grad_step"], ["cell_step"],
-    ["cell_f32_step"] and ["cell_bf16pair_step"]. Returns (launches,
-    training steps)."""
+    encode and of its table gradient (corner layout), of the fused cell
+    table gradients (K7, K5, K6) and of K3 (the composite) in one
+    training step land in captured["train_step"], ["corner_grad_step"],
+    ["cell_step"], ["cell_f32_step"], ["cell_bf16pair_step"] and
+    [name + "_composite"]. Returns (launches, training steps)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Trainer
 
     views.update_num_rays(cfg.init_batch_size)
@@ -1085,8 +1171,9 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
     print(f"{name}: {len(record)} steps + final evaluate in {train_s:.2f} s; "
           f"eval {metrics}; occupied cells {occ_frac:.4f}; kernel "
           f"launches {launches}")
-    for name in must_launch:
-        check(launches[name] > 0, f"the training path never launched {name}")
+    for kernel_name in must_launch:
+        check(launches[kernel_name] > 0,
+              f"the training path never launched {kernel_name}")
     check(all(np.isfinite(losses)), "non-finite training loss")
     first, last = np.mean(losses[:20]), np.mean(losses[-20:])
     print(f"loss: mean of the first 20 steps {first:.6f}, of the last 20 "
@@ -1124,7 +1211,8 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
             capture(hg, "tet_factor_grad_x_kernel", captured, "cell_step"), \
             capture(hg, "cell_row_grad_x_kernel", captured, "cell_f32_step"), \
             capture(hg, "cell_pair_grad_x_kernel", captured,
-                    "cell_bf16pair_step"):
+                    "cell_bf16pair_step"), \
+            capture(hs, "segment_sum_kernel", captured, f"{name}_composite"):
         ngp_step_grads(torch, trainer, batch)
     for dtype in ("float32", "bfloat16"):
         compare_step(torch, trainer, kernels, batch, dtype, table_grad)
@@ -1397,9 +1485,10 @@ def field_slice(torch, kernels, card, views, captured, report,
     stream entry. Gates: finite losses that fall, the artifact contract,
     the fixture sphere in the exported |grad|. Then one step on the
     kernel path against the plain path, and (for phase 6) the field
-    encode's and K1's arguments of that step. Fills report["train_field"]
-    and returns the path's launches."""
+    encode's, K1's and K3's arguments of that step. Fills
+    report["train_field"] and returns the path's launches."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.train.stage1_ngp import (
         Stage1Config,
         Stage1Trainer,
@@ -1540,8 +1629,8 @@ def field_slice(torch, kernels, card, views, captured, report,
           f"points/s [{card}]")
 
     # one step on the kernel path against the plain path, with the
-    # trained weights, one batch and one jitter; the field encode's and
-    # K1's arguments of the kernel-path step go to phase 6
+    # trained weights, one batch and one jitter; the field encode's, K1's
+    # and K3's arguments of the kernel-path step go to phase 6
     data = views.fetch_train_batch()
     dev = trainer.device
     batch = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -1551,7 +1640,9 @@ def field_slice(torch, kernels, card, views, captured, report,
                             device=dev))
     with capture(hg, "encode_kernel", captured, "field_step",
                  when=lambda table, x, c: c == fgrid), \
-            capture(hg, "table_grad_kernel", captured, "field_grad_step"):
+            capture(hg, "table_grad_kernel", captured, "field_grad_step"), \
+            capture(hs, "segment_sum_kernel", captured,
+                    "train_field_composite"):
         field_step_grads(torch, trainer, batch)
     out["compare"] = compare_field_step(torch, trainer, kernels, batch)
 
@@ -1798,11 +1889,11 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     joint over 300-400), rendered hits/s, rays a step and the wait on
     the prefetcher; then a frozen and a joint step on the kernel path
     against the plain path, and (for phase 6) one step's field encode,
-    field table gradient and packed composite. Fills
-    report["train_finetune"] and returns the path's launches."""
+    field table gradient, packed composite and the twin's composite.
+    Fills report["train_finetune"] and returns the path's launches."""
     from quadraturefields_tpu_torch.geometry.intersect import HitPrefetcher
     from quadraturefields_tpu_torch.ops import hashgrid as hg
-    from quadraturefields_tpu_torch.render import quadrature
+    from quadraturefields_tpu_torch.render import quadrature, renderer
     from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
     from quadraturefields_tpu_torch.train.stage4_finetune import (
         Stage4Config,
@@ -1935,8 +2026,8 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
               f"ms a step [{card}]")
 
     # a frozen and a joint step on the kernel path against the plain
-    # path; the joint step's field encode, field table gradient and
-    # packed composite go to phase 6
+    # path; the joint step's field encode, field table gradient, packed
+    # composite and its volumetric twin's composite go to phase 6
     for freeze in (True, False):
         inputs = finetune_step_inputs(torch, trainer, up)
         if not freeze:
@@ -1946,7 +2037,9 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
                             "finetune_grad_step",
                             when=lambda x, g, c: c == fgrid), \
                     capture(quadrature, "presorted_row_segment_sum_vjp",
-                            captured, "finetune_composite"):
+                            captured, "finetune_composite"), \
+                    capture(renderer, "presorted_row_segment_sum_vjp",
+                            captured, "finetune_twin_composite"):
                 finetune_step_grads(torch, trainer, inputs, freeze)
         out["compare_" + ("frozen" if freeze else "joint")] = \
             compare_finetune_step(torch, trainer, kernels, inputs, freeze)
@@ -1994,8 +2087,7 @@ def time_captured(torch, report, captured, card, baseline=None):
 
     for key in ("eval_chunk", "train_step", "corner_grad_step", "cell_step",
                 "cell_f32_step", "cell_bf16pair_step", "field_step",
-                "field_grad_step", "finetune_step", "finetune_grad_step",
-                "finetune_composite"):
+                "field_grad_step", "finetune_step", "finetune_grad_step"):
         check(key in captured, f"no kernel call captured in {key}")
     table, x, cfg = captured["eval_chunk"]
     inputs = {"eval_chunk": (table, x, cfg),
@@ -2132,10 +2224,9 @@ def time_captured(torch, report, captured, card, baseline=None):
 
 def time_finetune_captured(torch, report, captured, card, table_grad):
     """Phase 6's stage-4 part: K1 (table_grad, time_captured's helper)
-    on the stage-4 step's field positions and cotangent, and K3 on its
-    packed composite, against their plain versions."""
+    on the stage-4 step's field positions and cotangent into the
+    deformation table, against its plain version."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
-    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
     k1 = report["hashgrid_encode_bwd"]
     # K1 on the stage-4 step's field positions and cotangent into the
@@ -2153,34 +2244,39 @@ def time_finetune_captured(torch, report, captured, card, table_grad):
     k1["captured"]["finetune_step"] = entry
     del x, g
 
-    # K3 on the stage-4 step's packed composite: the hits' 8-wide rows,
-    # keys = their ray (pad = n), into the step's rays
-    keys, vals, n_seg = captured["finetune_composite"]
-    vals = vals.contiguous()
-    m = keys.shape[0]
-    got = hs.segment_sum_kernel(keys, vals, n_seg)
-    want = hs.segment_sum_plain(keys, vals.double(), n_seg)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    del got, want
-    ms = cuda_ms(lambda: hs.segment_sum_kernel(keys, vals, n_seg))
-    plain_ms = cuda_ms(lambda: hs.segment_sum_plain(keys, vals, n_seg))
-    acc = torch.zeros((n_seg + 1, vals.shape[1]), device=vals.device)
-    keys_c = keys.long().clamp(0, n_seg)
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, keys_c, vals))
-    valid = int((keys < n_seg).sum())
-    b = bound(m * 4 + m * 32 + n_seg * 32, valid * 8)
-    print(f"segment sum (K3) on one stage-4 step's packed composite: {m} "
-          f"rows ({valid} hits, the rest pads) x 8 into {n_seg} rays: "
-          f"max_abs_err {err}, relative {rel} (limit 1e-5); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} "
-          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
-    check(rel <= 1e-5, f"segment sum on the stage-4 composite disagrees: "
-          f"{rel}")
-    report["segment_sum"].setdefault("captured", {})["finetune_step"] = dict(
-        rows=m, hits=valid, segments=n_seg, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms, **b)
+
+def time_segment_sums(torch, report, captured, card, baseline=None):
+    """Phase 6's K3 part: the per-ray segment sum on each path's own
+    inputs (captured in phases 3-5, 7 and 8): the composite of the
+    busiest eval chunk, of a step of each stage-1 training path, of a
+    stage-2 step, and of a joint stage-4 step's volumetric twin and its
+    packed quadrature stream (keys = the ray, pads = n); with a baseline,
+    the other checkout's K3 in turns beside. Adds
+    report["segment_sum"]["captured"]."""
+    paths = {
+        "eval": ("eval_composite", "the busiest eval chunk's composite"),
+        "train": ("train_composite", "a corner step's composite"),
+        "train_cell": ("train_cell_composite",
+                       "a cell (bf16factor) step's composite"),
+        "train_cell_f32": ("train_cell_f32_composite",
+                           "an f32 cell step's composite"),
+        "train_cell_bf16pair": ("train_cell_bf16pair_composite",
+                                "a bf16pair cell step's composite"),
+        "train_field": ("train_field_composite",
+                        "a stage-2 step's composite"),
+        "train_finetune_twin": ("finetune_twin_composite",
+                                "a joint stage-4 step's twin composite"),
+        "train_finetune_packed": ("finetune_composite",
+                                  "a joint stage-4 step's packed composite"),
+    }
+    out = report["segment_sum"]["captured"] = {}
+    for path, (key, label) in paths.items():
+        check(key in captured, f"no K3 call captured in {key}")
+        keys, vals, n_seg = captured.pop(key)
+        out[path] = segment_sum_case(torch, label, keys,
+                                     vals.contiguous(), n_seg, card,
+                                     baseline)
+        del keys, vals
 
 
 def main() -> int:
@@ -2237,7 +2333,7 @@ def main() -> int:
           f"source, in parallel) in {time.perf_counter() - t0:.1f} s")
 
     report, captured = {}, {}
-    compare_kernels(torch, dev, report, baseline)
+    compare_kernels(torch, dev, report, card, baseline)
     compare_cell_kernels(torch, dev, report, baseline)
 
     t0 = time.perf_counter()
@@ -2316,6 +2412,7 @@ def main() -> int:
         profile)
 
     time_captured(torch, report, captured, card, baseline)
+    time_segment_sums(torch, report, captured, card, baseline)
 
     check("jax" not in sys.modules, "the port imported jax")
     ref = sorted(k for k in sys.modules if k == "quadraturefields_tpu"

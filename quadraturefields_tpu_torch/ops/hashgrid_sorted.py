@@ -5,7 +5,9 @@ Port of quadraturefields_tpu/ops/hashgrid_sorted.py:
 - `presorted_row_segment_sum` and its differentiable form
   `presorted_row_segment_sum_vjp` (d vals = g[keys], as `_psum_bwd`):
   the per-ray sums of the composite (render/renderer.py) and of
-  accumulate_along_rays. The card runs csrc/segment_sum.cu, the CPU
+  accumulate_along_rays. The card runs csrc/segment_sum.cu
+  (`segment_group(M, n)` lanes a segment, a warp per 32 / lanes
+  segments), the CPU
   `segment_sum_plain` (the JAX CPU branch's segment_sum).
 - `sorted_table_grad`, K1's interface: M contributions summed into
   [E, 2]. The card runs csrc/table_grad.cu's `qf_table_grad_pairs`
@@ -54,9 +56,21 @@ SEGMENT_SUM_KERNEL = CudaKernel(
     "segment_sum",
     "qf_segment_sum",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-     ctypes.c_int, ctypes.c_int],
+     ctypes.c_int, ctypes.c_int, ctypes.c_int],
     replaces="quadraturefields_tpu/ops/hashgrid_sorted.py:175",
 )
+
+
+def segment_group(m: int, n_segments: int) -> int:
+    """Lanes a segment in csrc/segment_sum.cu: the largest power of two
+    at most the mean rows a segment, M / n_segments, and at most
+    2^17 / n_segments, so that the grid holds at most 4096 warps (about
+    one resident wave of an H100's 132 SMs: a second wave pays the
+    warps' searches again); 1 to 16."""
+    group = 1
+    while group < 16 and 2 * group * n_segments <= min(m, 1 << 17):
+        group *= 2
+    return group
 
 
 def segment_sum_kernel(keys: torch.Tensor, vals: torch.Tensor,
@@ -81,7 +95,7 @@ def segment_sum_kernel(keys: torch.Tensor, vals: torch.Tensor,
     if n_segments == 0:
         return out
     SEGMENT_SUM_KERNEL.launch(dev, ptr(keys), ptr(vals), ptr(out), m,
-                              n_segments, rw)
+                              n_segments, rw, segment_group(m, n_segments))
     return out
 
 

@@ -174,6 +174,97 @@ def test_segment_sum_kernel_matches_plain(dev):
         assert float(got[n_seg // 2:].abs().sum()) > 0
 
 
+def _segment_stream(dev, m, n_seg, n_pad, seed):
+    """Sorted uniform keys of m - n_pad rows over n_seg segments, then
+    n_pad pad rows (key n_seg)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.randint(0, n_seg, (m - n_pad,), generator=g, device=dev)
+    return torch.cat([keys.sort().values,
+                      torch.full((n_pad,), n_seg, device=dev)]).int()
+
+
+def _check_segment_sum(keys, vals, n_seg):
+    """The kernel within 1e-5 of max of the plain sum in float64, its
+    segments without rows exactly 0, and a second launch bit for bit
+    the first."""
+    got = hs.segment_sum_kernel(keys, vals, n_seg)
+    again = hs.segment_sum_kernel(keys, vals, n_seg)
+    want = hs.segment_sum_plain(keys, vals.double(), n_seg)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    rows = torch.bincount(keys.long().clamp(0, n_seg), minlength=n_seg + 1)
+    assert not got[rows[:n_seg] == 0].any()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rw", range(1, 9))
+@pytest.mark.parametrize("rows_a_segment,group", [
+    (0.6, 1), (2.5, 2), (4.0, 2), (8.0, 4), (16.0, 8), (128.0, 16)])
+def test_segment_sum_kernel_short_and_long_segments(dev, rows_a_segment,
+                                                    group, rw):
+    """K3 at the stage-4 pack cap (163,840 rows, 1/8 pads) at 0.6-128
+    rows a segment, which take every lane count of the kernel (1-16:
+    here 2^17 / n bounds it) and every row width 1-8."""
+    m, n_pad = 163_840, 20_480
+    n_seg = round((m - n_pad) / rows_a_segment)
+    assert hs.segment_group(m, n_seg) == group
+    keys = _segment_stream(dev, m, n_seg, n_pad, rw)
+    vals = torch.randn((m, rw), device=dev)
+    _check_segment_sum(keys, vals, n_seg)
+
+
+@pytest.mark.parametrize("rows_a_segment", [0.6, 2.5, 8.0, 20.0])
+def test_segment_sum_kernel_skewed_runs(dev, rows_a_segment):
+    """Poisson run lengths with 1% of the segments 64-2000 rows long:
+    the runs longer than 32 lanes-a-segment rows go to the whole warp,
+    up to 32 of them in one warp."""
+    g = torch.Generator(device=dev).manual_seed(int(rows_a_segment * 10))
+    n_seg = 20_000
+    lengths = torch.poisson(
+        torch.full((n_seg,), rows_a_segment, device=dev), generator=g).long()
+    tail = torch.rand((n_seg,), generator=g, device=dev) < 0.01
+    tail[:32] = True  # a warp of long runs
+    lengths[tail] = torch.randint(64, 2000, (int(tail.sum()),),
+                                  generator=g, device=dev)
+    keys = torch.repeat_interleave(
+        torch.arange(n_seg, device=dev, dtype=torch.int32), lengths)
+    keys = torch.cat([keys, torch.full((777,), n_seg, dtype=torch.int32,
+                                       device=dev)])
+    vals = torch.randn((keys.shape[0], 8), generator=g, device=dev)
+    _check_segment_sum(keys, vals, n_seg)
+
+
+@pytest.mark.parametrize("n_seg", [1000, 262_144])
+def test_segment_sum_kernel_one_long_run(dev, n_seg):
+    """A single run of 10^5 rows (key 5) among empty segments, summed by
+    the whole warp whether the mean rows a segment give it 16 lanes
+    (10^5 rows over 1000 segments) or one (over 262,144)."""
+    m = 100_000
+    keys = torch.full((m,), 5, dtype=torch.int32, device=dev)
+    vals = torch.randn((m, 8), device=dev)
+    _check_segment_sum(keys, vals, n_seg)
+    got = hs.segment_sum_kernel(keys, vals, n_seg)
+    assert float(got[5].abs().sum()) > 0 and not got[6:].any()
+
+
+@pytest.mark.parametrize("rw", [3, 8])
+def test_segment_sum_kernel_edge_cases(dev, rw):
+    """No rows, one segment, all rows pads, negative keys (segment 0)
+    and runs of one row."""
+    cases = [
+        ([], 6), ([0, 0, 0, 1, 1], 1), ([4] * 9, 4),
+        ([-7, -1, -1, 0, 2, 2, 5, 5], 5), ([0, 1, 2, 4, 7, 8, 9, 9], 9),
+    ]
+    for keys, n_seg in cases:
+        keys = torch.tensor(keys, dtype=torch.int32, device=dev)
+        vals = torch.randn((keys.shape[0], rw), device=dev)
+        got = hs.segment_sum_kernel(keys, vals, n_seg)
+        want = hs.segment_sum_plain(keys, vals.double(), n_seg)
+        torch.cuda.synchronize()
+        assert got.shape == (n_seg, rw)
+        assert float((got - want).abs().max()) <= 1e-6, keys
+
+
 @pytest.mark.parametrize("interp", ["cube", "tet"])
 @pytest.mark.parametrize("n_features", [1, 2, 4, 8])
 def test_table_grad_kernel_matches_plain(dev, interp, n_features):
