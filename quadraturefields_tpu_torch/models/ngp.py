@@ -191,8 +191,34 @@ def ngp_forward(params, x, dirs, aabb, cfg: NGPConfig):
 
 
 def ngp_features(params, x, aabb, cfg: NGPConfig):
-    """Per-point bakeable features: raw head output concat density."""
+    """Per-point bakeable features [head_output_dim + 1]: raw head
+    output concat density (reference ngp.py:445-454)."""
     density, embedding = ngp_query_density(params, x, aabb, cfg,
                                            return_feat=True)
     raw = mlp_apply(params["mlp_head"], embedding, compute_dtype=cfg.cdtype)
-    return torch.cat([raw, density], dim=-1)
+    return torch.cat([raw.to(torch.float32), density], dim=-1)
+
+
+def ngp_features_to_rgb(features, dirs, cfg: NGPConfig):
+    """Decode baked features (no MLP) -> rgb: the real-time render path
+    (reference ngp.py:456-461 sg, ngp.py:642-645 sg_old on raw dirs)."""
+    diffuse = features[:, :3]
+    if cfg.head == "sg_old":
+        sg = _sg_mixture_old(features[:, 3:], dirs, cfg.num_g_lobes)
+    else:
+        sg = _spherical_gaussian_mixture(features[:, 3:], dirs,
+                                         cfg.num_g_lobes)
+    return torch.sigmoid(diffuse + sg)
+
+
+def ngp_sg_old_head_output_dim(num_lobes: int) -> int:
+    """3 + num_lobes * 3 * (3+1+1), reference ngp.py:553."""
+    return 3 + num_lobes * 15
+
+
+def ngp_sg_old_features_to_rgb(features, dirs, num_lobes: int):
+    """features_to_rgb of the older NGPRadianceFieldSG layout
+    (ngp.py:642-645)."""
+    diffuse = features[:, :3]
+    return torch.sigmoid(
+        diffuse + _sg_mixture_old(features[:, 3:], dirs, num_lobes))

@@ -1,8 +1,10 @@
-"""Quadrature rendering at ray-mesh hits (stage 4).
+"""Quadrature rendering at ray-mesh hits (stages 4, 5, 6).
 
-Port of the stage-4 half of quadraturefields_tpu/render/quadrature.py
-(reference utils.py:465-607 render_image_finetune_with_occgrid and
-derive_properties, utils.py:863-898). Two layouts of the same hits:
+Port of quadraturefields_tpu/render/quadrature.py (reference
+utils.py:465-607 render_image_finetune_with_occgrid, utils.py:610-730
+the stage-5 SG distillation pass, utils.py:732-861 the vertex-feature
+baking check, and derive_properties, utils.py:863-898). Two layouts of
+the same hits:
 
   * dense rows [R, max_hits] padded with valid=False (the BVH's rows):
     compositing is an exclusive cumsum along the hit axis and the
@@ -13,6 +15,10 @@ derive_properties, utils.py:863-898). Two layouts of the same hits:
     presorted segment sum (K3 on the card) and the re-sort one stable
     (ray, deformed t) two-key sort of the stream, pads (ray == R,
     t = inf) at the tail.
+
+Stage 5 renders the SG model's rgb at the hits with the frozen
+teacher's density: the teacher runs without a graph (JAX's
+stop_gradient), so its encode records no table gradient.
 
 The random barycentric samples of the vertex regularizer take their
 uniforms at the dense [R, H, 3] shape, gathered by slot in the packed
@@ -188,6 +194,72 @@ def render_finetune_rows(
         "reg": reg,
         "n_hits": valid.sum(),
     }
+
+
+def render_fit_sg_rows(
+    sg_params,
+    teacher_params,
+    hits: HitRows,
+    origins,
+    viewdirs,
+    aabb,
+    sg_cfg,
+    teacher_cfg,
+    *,
+    ngp_forward_fn,
+    render_step_size: float,
+    bg_color: str = "white",
+    render_bkgd=None,
+):
+    """Stage-5 forward on dense rows: the SG model's rgb at the hits,
+    the frozen teacher's density, the composite (reference
+    utils.py:610-730). Returns (rgb, alpha, depth, weights)."""
+    R, H = hits.ts.shape
+    xyzs = (origins[:, None, :] + viewdirs[:, None, :] * hits.ts[..., None]
+            ).reshape(-1, 3)
+    dirs = viewdirs[:, None, :].expand(R, H, 3).reshape(-1, 3)
+    rgbs, _ = ngp_forward_fn(sg_params, xyzs, dirs, aabb, sg_cfg)
+    _, sigmas = _rf_forward(ngp_forward_fn, teacher_params, xyzs, dirs,
+                            aabb, teacher_cfg, stop_gradient_rf=True)
+    rgbs = rgbs.reshape(R, H, 3)
+    sigmas = sigmas.reshape(R, H)
+    deltas = torch.full_like(sigmas, render_step_size)
+    return row_composite(rgbs, sigmas, hits.ts, deltas, hits.valid,
+                         bg_color, render_bkgd)
+
+
+def render_finetune_baking_rows(
+    sg_params,
+    hits: HitRows,
+    origins,
+    viewdirs,
+    face_vertices,      # [R, H, 3, 3] hit-triangle vertices
+    barycentric,        # [R, H, 3] of the hit points
+    aabb,
+    sg_cfg,
+    *,
+    features_fn,        # ngp_features(params, x, aabb, cfg)
+    features_to_rgb_fn,  # ngp_features_to_rgb(features, dirs, cfg)
+    render_step_size: float,
+    bg_color: str = "white",
+    render_bkgd=None,
+):
+    """Vertex-feature baking check: the bakeable features at the hit
+    triangle's vertices, averaged by the hits' barycentrics, decoded and
+    composited (reference render_image_finetune_baking_with_occgrid,
+    utils.py:732-861)."""
+    R, H = hits.ts.shape
+    dirs = viewdirs[:, None, :].expand(R, H, 3)
+    feats = features_fn(sg_params, face_vertices.reshape(-1, 3), aabb,
+                        sg_cfg)
+    feats = feats.reshape(R, H, 3, -1)
+    feats = (feats * barycentric[..., None]).sum(dim=2)    # [R, H, D+1]
+    sigmas = feats[..., -1]
+    rgbs = features_to_rgb_fn(feats[..., :-1].reshape(R * H, -1),
+                              dirs.reshape(-1, 3), sg_cfg).reshape(R, H, 3)
+    deltas = torch.full_like(sigmas, render_step_size)
+    return row_composite(rgbs, sigmas, hits.ts, deltas, hits.valid,
+                         bg_color, render_bkgd)
 
 
 class PackedHits(NamedTuple):
@@ -412,6 +484,46 @@ def _finetune_on_stream(
         "n_rendered": ph.valid.sum().to(torch.int32),
         "ray_mask": packed_ray_mask(ph, R, cap),
     }
+
+
+def render_fit_sg_packed(
+    sg_params, teacher_params, hits: HitRows, origins, viewdirs, aabb,
+    sg_cfg, teacher_cfg, *, ngp_forward_fn, render_step_size: float,
+    pack_cap: int, bg_color: str = "white", render_bkgd=None,
+):
+    """render_fit_sg_rows on the packed stream of the dense rows.
+    Returns (rgb, alpha, depth, weights, packed_hits, ray_mask); the
+    mask leaves out the rays the cap truncated (packed_ray_mask)."""
+    R, H = hits.ts.shape
+    ph = pack_hit_rows(hits, min(int(pack_cap), R * H))
+    return render_fit_sg_packed_stream(
+        sg_params, teacher_params, ph, R, origins, viewdirs, aabb, sg_cfg,
+        teacher_cfg, ngp_forward_fn=ngp_forward_fn,
+        render_step_size=render_step_size, bg_color=bg_color,
+        render_bkgd=render_bkgd)
+
+
+def render_fit_sg_packed_stream(
+    sg_params, teacher_params, ph: PackedHits, n_rays: int, origins,
+    viewdirs, aabb, sg_cfg, teacher_cfg, *, ngp_forward_fn,
+    render_step_size: float, bg_color: str = "white", render_bkgd=None,
+):
+    """render_fit_sg_packed on a stream packed by the host
+    (MeshIntersection.intersect_packed, 12 B a hit): the SG model and
+    the teacher query the stream's hits, and the composite is one K3
+    segment sum with its gather VJP."""
+    R = n_rays
+    ray = ph.ray_indices.clamp(0, R - 1).to(torch.int64)
+    d = viewdirs[ray]
+    xyzs = origins[ray] + d * ph.ts[:, None]
+    rgbs, _ = ngp_forward_fn(sg_params, xyzs, d, aabb, sg_cfg)
+    _, sigmas = _rf_forward(ngp_forward_fn, teacher_params, xyzs, d, aabb,
+                            teacher_cfg, stop_gradient_rf=True)
+    rgb, alpha, depth, weights = packed_composite(
+        ph.ray_indices, rgbs, sigmas, ph.ts, ph.valid, R, render_step_size,
+        bg_color, render_bkgd)
+    return (rgb, alpha, depth, weights, ph,
+            packed_ray_mask(ph, R, ph.ts.shape[0]))
 
 
 def mesh_accumulate_deformation(cache_d, cache_w, dh, weights, tri_ids,

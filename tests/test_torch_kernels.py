@@ -7,7 +7,9 @@ gradient (also on ray-ordered samples with a padded budget, and both on
 the stage-2 and stage-4 field tables, last rows included), the pair
 segment sum and K8's one-launch value-layout interface (also on
 ray-ordered streams whose lanes merge), the occupancy bits, the per-ray
-segment sum (also at the stage-4 packed composite's shape) and the cell
+segment sum (also at the stage-4 packed composite's shape and at a
+baked chunk's adaptive cap), K2 and K1 at the stage-5 SG grid's bake
+chunk and step, and the cell
 layout's table gradients K5, K6 and K7 (from their streams and fused
 from positions, alone and through the cell encode's backward); and the
 stage-3 blur, whose convolutions must not take TF32 on the card. Without
@@ -408,6 +410,100 @@ def test_segment_sum_at_the_stage4_composite(dev):
     want_dv = torch.where((keys < n)[:, None], cot[k], 0.0)
     assert torch.equal(dv, want_dv)
     assert not dv[hits:].any()
+
+
+@pytest.mark.parametrize("coverage", [1.0, 0.02])
+def test_segment_sum_at_a_baked_chunk(dev, coverage):
+    """K3 as the baked renderer calls it (presorted_row_segment_sum, no
+    autograd) on a chunk's packed stream: 8192 rays, a `coverage` share
+    of them hit, with 1-25 hits each (the cast's max_hits), sorted by
+    ray; the stream at the adaptive cap (BakedRenderer._pack_cap: the
+    sqrt(2) bucket at or above the hits, at least the rays), pads with
+    key = n at the tail; 8-wide rows whose last 3 columns are 0. Within
+    1e-5 of max of the plain sum in float64, the empty rays exactly 0."""
+    from quadraturefields_tpu_torch.baking.stage6 import BakedRenderer
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = 8192
+    hit = torch.rand((n,), generator=g, device=dev) < coverage
+    per_ray = torch.randint(1, 26, (n,), generator=g, device=dev) * hit
+    total = int(per_ray.sum())
+    m = BakedRenderer._pack_cap(n, total, None)
+    assert total <= m and n <= m
+    keys = torch.repeat_interleave(torch.arange(n, device=dev), per_ray)
+    keys = torch.cat([keys, torch.full((m - total,), n, device=dev)]).int()
+    vals = torch.rand((m, 8), generator=g, device=dev)
+    vals[:, 5:] = 0.0
+    before = hs.SEGMENT_SUM_KERNEL.launches
+    got = hs.presorted_row_segment_sum(keys, vals, n)
+    torch.cuda.synchronize()
+    assert hs.SEGMENT_SUM_KERNEL.launches == before + 1
+    want = hs.segment_sum_plain(keys, vals.double(), n)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    empty = per_ray == 0
+    assert not got[empty].any()
+    assert bool(empty.any()) == (coverage < 1.0)
+
+
+def _surface_points(g, n, dev):
+    """n points in [0, 1]^3 near a sphere of radius 0.25 around the
+    centre (hits and texels lie on a surface), a tenth of them
+    uniform."""
+    d = torch.randn((n, 3), generator=g, device=dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    r = 0.25 + 0.01 * torch.randn((n, 1), generator=g, device=dev)
+    x = 0.5 + r * d
+    k = n // 10
+    x[:k] = torch.rand((k, 3), generator=g, device=dev)
+    return x.clamp(0.0, 1.0)
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+def test_encode_at_a_bake_chunk_of_the_sg_grid(dev, interp):
+    """K2 on one bake chunk of the SG model's grid
+    (run_nerfsynthetic_fit_sg.sh: corner L16 F2 T2^19, 6,299,960 rows):
+    2^18 texel positions on a surface. Tet bit for bit, cube within
+    1e-5 of the plain version."""
+    from quadraturefields_tpu_torch.train.stage5_fit_sg import Stage5Config
+
+    cfg = dataclasses.replace(Stage5Config().sg_config().hashgrid,
+                              interp=interp)
+    assert cfg.total_entries == 6_299_960
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _surface_points(g, 1 << 18, dev)
+    table = torch.rand((cfg.total_entries, 2), generator=g,
+                       device=dev) * 2 - 1
+    before = hg.ENCODE_KERNEL.launches
+    with torch.no_grad():
+        got = hg.hashgrid_encode(table, x, cfg)
+    torch.cuda.synchronize()
+    assert hg.ENCODE_KERNEL.launches == before + 1
+    err = float((got - hg.encode_plain(table, x, cfg)).abs().max())
+    assert err == 0.0 if interp == "tet" else err <= 1e-5
+
+
+def test_table_grad_at_a_stage5_step(dev):
+    """The fused K1 through the encode's backward on a stage-5 step of
+    the SG grid (tet, 6,299,960 rows): 2^18 hit positions on a surface
+    and a cotangent whose rows are 0 for the pads' fifth. Within 1e-5
+    of max of the plain sum in float64; one launch."""
+    from quadraturefields_tpu_torch.train.stage5_fit_sg import Stage5Config
+
+    cfg = Stage5Config().sg_config().hashgrid
+    g = torch.Generator(device=dev).manual_seed(13)
+    n = 1 << 18
+    x = _surface_points(g, n, dev)
+    table = (torch.rand((cfg.total_entries, 2), generator=g, device=dev)
+             * 2 - 1).requires_grad_(True)
+    cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+    cot[-n // 5:] = 0.0
+    before = hg.ENCODE_BWD_KERNEL.launches
+    (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
+                                 cot)
+    torch.cuda.synchronize()
+    assert hg.ENCODE_BWD_KERNEL.launches == before + 1
+    want = hg.table_grad_plain(x, cot.double(), cfg)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_stage3_blur_takes_no_tf32(dev, monkeypatch):

@@ -138,14 +138,20 @@ def test_metrics_match_jax():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port, takes one training step and
-    renders a tiny batch on the CPU, and has imported neither jax nor
-    any module of the JAX package."""
+    """A fresh interpreter imports the port (stages 5 and 6 included),
+    takes one training step and renders a tiny batch on the CPU, and has
+    imported neither jax nor any module of the JAX package."""
     code = """
 import sys
 import numpy as np, torch
 from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config, Stage1Trainer
 from quadraturefields_tpu_torch.data.nerf_synthetic import Rays
+import quadraturefields_tpu_torch.baking.stage6
+import quadraturefields_tpu_torch.cli.bake
+import quadraturefields_tpu_torch.cli.train_fit_sg
+import quadraturefields_tpu_torch.data.own_views
+import quadraturefields_tpu_torch.render.baked
+import quadraturefields_tpu_torch.train.stage5_fit_sg
 
 class Views:
     HEIGHT = WIDTH = 16
