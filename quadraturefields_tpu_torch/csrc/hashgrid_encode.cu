@@ -79,6 +79,21 @@
 //   points.
 // - Lanes whose cotangent values are all zero (the sample budget's
 //   padded slots, all at one position) add nothing.
+//
+// Stochastic backward (qf_hashgrid_encode_bwd_stochastic): grad_mode
+// "stochastic", which replaces the corner pick of ops/hashgrid.py:791-812
+// (XLA code in JAX, on the way to the same table gradient K1 computes).
+// Each (point, level) picks ONE of its C corners with probability equal
+// to its interpolation weight, from a uniform hashed from the clipped
+// position's bits and the level (JAX's _hash_u01), and adds its
+// unweighted cotangent g to that row alone: an unbiased estimate of the
+// exact sum. One thread per (point, level), point-major, so a warp reads
+// its cotangent values as consecutive rows of g. The corners come from
+// the same level_corners as the forward and the exact backward, the
+// cumulative weights are summed in corner order with round-to-nearest
+// adds, so the picks equal the plain version's wherever its weights
+// equal these (tet: always). What bounds it: reading x and g and writing
+// the [E, F] gradient, as the exact K1, with 1/C of its atomics.
 #include "grid_levels.cuh"
 
 namespace {
@@ -479,6 +494,87 @@ encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// JAX's _hash_u01 (ops/hashgrid.py:685-701) of point p at level l: the
+// bits of the clipped coordinates times odd multipliers, xor'ed, the
+// level's multiple xor'ed in, two xorshift-multiply rounds, the top 24
+// bits as a float in [0, 1). "+ 0" turns a clipped -0.0 into +0.0, as
+// XLA's clip does.
+__device__ __forceinline__ float hash_u01(const float* __restrict__ x,
+                                          long long p, int l) {
+  unsigned int b[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float xa = fminf(fmaxf(__ldg(x + 3 * p + a), 0.0f), 1.0f);
+    b[a] = __float_as_uint(__fadd_rn(xa, 0.0f));
+  }
+  unsigned int h = (b[0] * 0x9E3779B1u) ^ (b[1] * 0x85EBCA77u) ^
+                   (b[2] * 0xC2B2AE3Du);
+  h ^= static_cast<unsigned int>(l) * 0x27D4EB2Fu;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  return __fmul_rn(static_cast<float>(h >> 8), 5.9604644775390625e-08f);
+}
+
+// Stochastic table gradient: thread i = p * L + l picks corner
+// c = #{k < C-1 : u >= w_0 + ... + w_k} of (p, l) and adds g[p, l] to
+// its row (skipped when the F values are all zero). With `picks`
+// non-null it also stores the picked row (global table row) at
+// picks[p * L + l].
+template <int F, bool kTet>
+__global__ void __launch_bounds__(kThreads)
+encode_bwd_stochastic_kernel(const float* __restrict__ x,
+                             const float* __restrict__ g,
+                             float* __restrict__ d_table,
+                             long long* __restrict__ picks, long long n,
+                             int n_levels, Levels lv) {
+  constexpr int C = Corners<kTet>::kCount;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n * n_levels) return;
+  const long long p = i / n_levels;
+  const int l = static_cast<int>(i - p * n_levels);
+  const Corners<kTet> c = level_corners<kTet>(
+      x, p, lv.scale[l], lv.res[l], lv.hashed[l], lv.mask[l]);
+  const float u = hash_u01(x, p, l);
+  float cdf = 0.0f;
+  int sel = 0;
+#pragma unroll
+  for (int k = 0; k < C - 1; ++k) {
+    cdf = __fadd_rn(cdf, c.w[k]);
+    sel += u >= cdf;
+  }
+  long long row = c.row[0];
+#pragma unroll
+  for (int k = 1; k < C; ++k) {
+    if (sel == k) row = c.row[k];
+  }
+  if (picks != nullptr) picks[i] = lv.offset[l] + row;
+  float gv[F];
+  bool live = false;
+  const float* gs = g + i * F;
+  if constexpr (F == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(gs);
+    gv[0] = v.x;
+    gv[1] = v.y;
+  } else if constexpr (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < F / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(gs)[q];
+      gv[4 * q] = v.x;
+      gv[4 * q + 1] = v.y;
+      gv[4 * q + 2] = v.z;
+      gv[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) gv[f] = gs[f];
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) live |= gv[f] != 0.0f;
+  if (live) add_row<F>(d_table + lv.offset[l] * F, row, gv);
+}
+
 // Shared-memory budget of one tile's output, in floats (8.5 KB: 64
 // points at L16 F2).
 constexpr int kTileFloats = 2176;
@@ -520,6 +616,22 @@ cudaError_t launch_bwd(bool tet, const float* x, const float* g,
   } else {
     encode_bwd_kernel<F, false><<<blocks, threads, smem, stream>>>(
         x, g, d_table, n, n_levels, lv);
+  }
+  return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t launch_bwd_stochastic(bool tet, const float* x, const float* g,
+                                  float* d_table, long long* picks,
+                                  long long n, int n_levels,
+                                  const Levels& lv, cudaStream_t stream) {
+  const unsigned int blocks = qf_blocks(n * n_levels, kThreads);
+  if (tet) {
+    encode_bwd_stochastic_kernel<F, true><<<blocks, kThreads, 0, stream>>>(
+        x, g, d_table, picks, n, n_levels, lv);
+  } else {
+    encode_bwd_stochastic_kernel<F, false><<<blocks, kThreads, 0, stream>>>(
+        x, g, d_table, picks, n, n_levels, lv);
   }
   return cudaGetLastError();
 }
@@ -576,6 +688,43 @@ QF_EXPORT int qf_hashgrid_encode_bwd(const float* x, const float* g,
     case 2: err = launch_bwd<2>(tet, x, g, d_table, n, n_levels, lv, s); break;
     case 4: err = launch_bwd<4>(tet, x, g, d_table, n, n_levels, lv, s); break;
     case 8: err = launch_bwd<8>(tet, x, g, d_table, n, n_levels, lv, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The stochastic table gradient (grad_mode "stochastic"): x [n, 3] f32,
+// g [n, L*F] f32 (4 * min(F, 4)-byte aligned), d_table [E, F] f32 zeroed
+// by the caller and added into, picks [n, L] int64 or null, all device
+// memory; the per-level arrays (length L) are host memory.
+QF_EXPORT int qf_hashgrid_encode_bwd_stochastic(
+    const float* x, const float* g, float* d_table, long long* picks,
+    long long n, int n_levels, int n_features, int tet, const float* scales,
+    const int* res, const long long* sizes, const long long* offsets,
+    void* stream) {
+  Levels lv;
+  if (n <= 0 || !make_levels(n_levels, scales, res, sizes, offsets, &lv)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (n_features) {
+    case 1:
+      err = launch_bwd_stochastic<1>(tet, x, g, d_table, picks, n, n_levels,
+                                     lv, s);
+      break;
+    case 2:
+      err = launch_bwd_stochastic<2>(tet, x, g, d_table, picks, n, n_levels,
+                                     lv, s);
+      break;
+    case 4:
+      err = launch_bwd_stochastic<4>(tet, x, g, d_table, picks, n, n_levels,
+                                     lv, s);
+      break;
+    case 8:
+      err = launch_bwd_stochastic<8>(tet, x, g, d_table, picks, n, n_levels,
+                                     lv, s);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

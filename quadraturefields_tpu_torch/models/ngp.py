@@ -83,6 +83,17 @@ class NGPConfig:
         return getattr(torch, self.compute_dtype)
 
 
+def density_field_config(**kw) -> NGPConfig:
+    """NGPDensityField defaults (reference ngp.py:815-825): no head, a
+    5-level 2^17 grid to resolution 128, density only."""
+    base = dict(
+        head="none", max_resolution=128, n_levels=5, log2_hashmap_size=17,
+        geo_feat_dim=0,
+    )
+    base.update(kw)
+    return NGPConfig(**base)
+
+
 def ngp_init(generator: torch.Generator, cfg: NGPConfig, device=None):
     """Table U(-1e-4, 1e-4); tcnn-style bias-free 64-wide base MLP with
     one hidden layer; the head decoder per `cfg.head`."""

@@ -12,8 +12,9 @@ encode with its gradient, for both table layouts.
 Corner layout (one table row per grid corner): for tensors on the card
 the forward launches csrc/hashgrid_encode.cu (`qf_hashgrid_encode`) and
 the table gradient the fused kernel of the same file
-(`qf_hashgrid_encode_bwd`); CPU tensors run the plain versions,
-`encode_plain` and `table_grad_plain`.
+(`qf_hashgrid_encode_bwd`, or `qf_hashgrid_encode_bwd_stochastic` for
+grad_mode "stochastic"); CPU tensors run the plain versions,
+`encode_plain`, `table_grad_plain` and `table_grad_stochastic_plain`.
 
 Cell layout (one row of 8F floats per grid cell, all 8 corners' features
 in the row, c*F + f): the forward is plain PyTorch on both devices
@@ -55,8 +56,9 @@ class HashGridConfig:
     """Same fields and defaults as the JAX config, so configs carry over.
 
     Corner layout: `grad_mode` "auto", "exact" and "sorted" all give the
-    exact table gradient (one kernel on the card); "stochastic" is not
-    ported yet and raises. Cell layout: `grad_mode` and `grad_payload`
+    exact table gradient (one kernel on the card); "stochastic" adds each
+    (point, level)'s cotangent to one corner picked with probability
+    equal to its weight (its own kernel on the card). Cell layout: `grad_mode` and `grad_payload`
     pick the gradient as JAX's `_cell_bwd` does (`_cell_grad_route`);
     "auto" is "sorted" for tensors on the card unless 3 * E > n * L,
     else "exact", and "stochastic" is "exact"."""
@@ -347,6 +349,79 @@ def table_grad_plain(x: torch.Tensor, g: torch.Tensor,
     return d_table
 
 
+# JAX's _hash_u01 multipliers: one per coordinate, the level's, the
+# mixing round's
+_HASH_X = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D)
+_HASH_LEVEL = 0x27D4EB2F
+_HASH_MIX = 0x2C1B3C6D
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """a * b mod 2^32 for int64 a in [0, 2^32) and a 32-bit constant b,
+    in 16-bit halves so that no int64 product overflows."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] in f32 with XLA's bits: torch.clamp keeps
+    -0.0, jnp.clip gives +0.0, and "+ 0" makes it +0.0."""
+    return x.to(torch.float32).clamp(0.0, 1.0) + 0.0
+
+
+def _hash_u01(x: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """JAX's _hash_u01 (ops/hashgrid.py:685-701), bit for bit: uniforms
+    [L, N] in [0, 1) from the bit patterns of x [N, 3] f32 and the level.
+    uint32 arithmetic in int64, each product masked to 32 bits."""
+    xb = x.to(torch.float32).contiguous().view(torch.int32) \
+        .to(torch.int64) & _MASK32                               # [N, 3]
+    h = (_mul32(xb[:, 0], _HASH_X[0]) ^ _mul32(xb[:, 1], _HASH_X[1])
+         ^ _mul32(xb[:, 2], _HASH_X[2]))
+    lv = _mul32(torch.arange(n_levels, dtype=torch.int64, device=x.device),
+                _HASH_LEVEL)
+    h = h[None, :] ^ lv[:, None]                                  # [L, N]
+    h = h ^ (h >> 15)
+    h = _mul32(h, _HASH_MIX)
+    h = h ^ (h >> 12)
+    return (h >> 8).to(torch.float32) * 2.0**-24
+
+
+def stochastic_picks_plain(x: torch.Tensor,
+                           cfg: HashGridConfig) -> torch.Tensor:
+    """The table row [N, L] int64 that grad_mode "stochastic" picks for
+    each (point, level) of x [N, 3] (ops/hashgrid.py:791-812): corner
+    c = #{k < C-1 : u >= w_0 + ... + w_k}, u = _hash_u01 of the clipped
+    x, the cumulative weights summed in corner order in f32."""
+    n, L, C = x.shape[0], cfg.n_levels, cfg.corners
+    xc = _clip01(x)
+    u = _hash_u01(xc, L).T                                        # [N, L]
+    idx, w = _corner_indices_weights(xc, cfg)
+    idx, w = idx.reshape(n, L, C), w.reshape(n, L, C)
+    cdf = torch.zeros_like(u)
+    sel = torch.zeros((n, L), dtype=torch.int64, device=x.device)
+    for k in range(C - 1):
+        cdf = cdf + w[:, :, k]
+        sel = sel + (u >= cdf).to(torch.int64)
+    return torch.gather(idx, 2, sel[:, :, None])[:, :, 0]
+
+
+def table_grad_stochastic_plain(x: torch.Tensor, g: torch.Tensor,
+                                cfg: HashGridConfig) -> torch.Tensor:
+    """The stochastic table gradient: each (point, level)'s unweighted
+    cotangent g [N, L*F] added to the one row stochastic_picks_plain
+    picks, with one index_add_ -> [E, F], summed in f32 (f64 for f64 g,
+    a reference sum). An unbiased estimate of table_grad_plain."""
+    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
+    rows = stochastic_picks_plain(x, cfg)
+    dtype = torch.promote_types(g.dtype, torch.float32)
+    d_table = torch.zeros((cfg.total_entries, F), dtype=dtype,
+                          device=x.device)
+    d_table.index_add_(0, rows.reshape(-1), g.to(dtype).reshape(n * L, F))
+    return d_table
+
+
 ENCODE_BWD_KERNEL = CudaKernel(
     "hashgrid_encode_bwd",
     "qf_hashgrid_encode_bwd",
@@ -375,6 +450,46 @@ def table_grad_kernel(x: torch.Tensor, g: torch.Tensor,
     if x.shape[0]:
         _launch_levels(ENCODE_BWD_KERNEL, x, g, d_table, cfg)
     return d_table
+
+
+ENCODE_BWD_STOCHASTIC_KERNEL = CudaKernel(
+    "hashgrid_encode_bwd_stochastic",
+    "qf_hashgrid_encode_bwd_stochastic",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    replaces="quadraturefields_tpu/ops/hashgrid.py:791",
+    library="hashgrid_encode",
+)
+
+
+def table_grad_stochastic_kernel(x: torch.Tensor, g: torch.Tensor,
+                                 cfg: HashGridConfig, with_picks=False):
+    """Launch the stochastic table gradient of csrc/hashgrid_encode.cu on
+    CUDA tensors x [N, 3] f32 and g [N, L*F] f32 -> [E, F] f32; with
+    `with_picks`, (gradient, the picked rows [N, L] int64)."""
+    _check_x(x, cfg)
+    check_cuda_tensor(g, "g", torch.float32, x.device, 2)
+    n, L = x.shape[0], cfg.n_levels
+    if g.shape != (n, cfg.output_dim):
+        raise ValueError(f"g is {tuple(g.shape)}, expected "
+                         f"{(n, cfg.output_dim)}")
+    align = 4 * min(cfg.n_features, 4)
+    if g.data_ptr() % align:
+        raise ValueError(f"g must be {align}-byte aligned")
+    d_table = torch.zeros((cfg.total_entries, cfg.n_features),
+                          dtype=torch.float32, device=x.device)
+    picks = (torch.empty((n, L), dtype=torch.int64, device=x.device)
+             if with_picks else None)
+    if n:
+        scales, res, sizes, offsets = _level_arrays(cfg)
+        ENCODE_BWD_STOCHASTIC_KERNEL.launch(
+            x.device, ptr(x), ptr(g), ptr(d_table),
+            ctypes.c_void_p(0 if picks is None else picks.data_ptr()), n, L,
+            cfg.n_features, int(cfg.interp == "tet"),
+            *(a.ctypes.data_as(ctypes.c_void_p)
+              for a in (scales, res, sizes, offsets)))
+    return (d_table, picks) if with_picks else d_table
 
 
 # ---- cell layout (JAX ops/hashgrid.py:286-634) ----
@@ -746,6 +861,10 @@ def _encode_forward(table, x, cfg: HashGridConfig):
 def _table_grad(x, g, cfg: HashGridConfig):
     if cfg.layout == "cell":
         return _cell_table_grad(x, g, cfg)
+    if cfg.grad_mode == "stochastic":
+        if x.device.type == "cpu":
+            return table_grad_stochastic_plain(x, g, cfg)
+        return table_grad_stochastic_kernel(x, g, cfg)
     if x.device.type == "cpu":
         return table_grad_plain(x, g, cfg)
     return table_grad_kernel(x, g, cfg)
@@ -809,9 +928,6 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,
     if not (torch.is_grad_enabled()
             and (table.requires_grad or x.requires_grad)):
         return _encode_forward(table, x, cfg)
-    if cfg.grad_mode == "stochastic" and cfg.layout == "corner":
-        raise NotImplementedError(
-            'grad_mode "stochastic" is not ported yet')
     return _HashGridEncode.apply(table, x, cfg)
 
 

@@ -46,6 +46,7 @@ from ..utils.batching import bucket_num_rays
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.metrics import lpips_metric, mse, psnr, smooth_l1_loss, ssim
 from ..utils.optim import make_ngp_optimizer
+from ..utils.png import read_png, write_png
 
 # the reference's scene-type switch (examples/utils.py:30-45)
 MIPNERF360_UNBOUNDED_SCENES = (
@@ -56,10 +57,9 @@ MIPNERF360_UNBOUNDED_SCENES = (
 @dataclasses.dataclass
 class Stage1Config:
     """The JAX trainer's config, field for field, so configs carry over.
-    `data_sharding`, `num_devices` (data parallelism), `save_images` and
-    grad_mode "stochastic" on the corner layout are not ported yet; the
-    trainer refuses them. On the cell layout "stochastic" is "exact", as
-    in JAX."""
+    `data_sharding` and `num_devices` (data parallelism) are not ported
+    yet; the trainer refuses them. On the cell layout grad_mode
+    "stochastic" is "exact", as in JAX."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -223,6 +223,12 @@ def _regularizer(cfg: Stage1Config, acc, result, viewdirs, origins):
     return torch.zeros((), device=acc.device)
 
 
+def _to_uint8(img: torch.Tensor) -> np.ndarray:
+    """An [H, W, 3] image in [0, 1] as JAX's trainer saves it:
+    (clip(img, 0, 1) * 255).astype(uint8), truncating."""
+    return (img.clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+
+
 def _leaves(tree):
     """The tensors of a params tree, in the tree's order."""
     if isinstance(tree, dict):
@@ -248,11 +254,6 @@ class Stage1Trainer:
                  test_dataset=None, device="cuda"):
         if cfg.num_devices > 1 or cfg.data_sharding is not None:
             raise NotImplementedError("data parallelism is not ported yet")
-        if cfg.save_images:
-            raise NotImplementedError("saving eval images is not ported yet")
-        if cfg.grad_mode == "stochastic" and cfg.layout == "corner":
-            raise NotImplementedError(
-                'grad_mode "stochastic" is not ported yet')
         # full-f32 matmuls and convolutions: the bf16-operand MLP keeps
         # f32 products (ops/mlp.py) and SSIM needs f32 variances
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -434,7 +435,7 @@ class Stage1Trainer:
                 )
             if step > 0 and step % cfg.ckpt_every == 0:
                 self.save(os.path.join(ckpt_dir, "ngp.pt"))
-        metrics = self.evaluate()
+        metrics = self.evaluate(out_dir)
         logger.add_scalar("test/psnr", metrics["psnr"], self.step)
         logger.add_scalar("test/ssim", metrics["ssim"], self.step)
         logger.close()
@@ -508,11 +509,17 @@ class Stage1Trainer:
             outs.append(rgb)
         return torch.cat(outs)[:n]
 
-    def evaluate(self):
+    def evaluate(self, out_dir=None):
+        """PSNR, SSIM and LPIPS over the test views. With save_images and
+        an out_dir, each view's render and its absolute error go to
+        rgb_test_{i:03d}.png and rgb_error_{i:03d}.png as uint8 (the
+        port's own PNG writer), then into rgb.mp4 and rgb_error.mp4 where
+        imageio and a codec are installed."""
         cfg = self.cfg
         n_views = len(self.test_dataset)
         if cfg.eval_views is not None:
             n_views = min(n_views, cfg.eval_views)
+        save = cfg.save_images and out_dir is not None
         psnrs, ssims, lpipss = [], [], []
         H, W = self.test_dataset.HEIGHT, self.test_dataset.WIDTH
         for i in range(n_views):
@@ -524,11 +531,42 @@ class Stage1Trainer:
             psnrs.append(float(psnr(rgb_img, pixels)))
             ssims.append(float(ssim(rgb_img, pixels)))
             lpipss.append(lpips_metric(rgb_img, pixels))
+            if save:
+                write_png(os.path.join(out_dir, f"rgb_test_{i:03d}.png"),
+                          _to_uint8(rgb_img))
+                write_png(os.path.join(out_dir, f"rgb_error_{i:03d}.png"),
+                          _to_uint8((rgb_img - pixels).abs()))
+        if save:
+            self._write_videos(out_dir)
         return {
             "psnr": float(np.mean(psnrs)),
             "ssim": float(np.mean(ssims)),
             "lpips": float(np.mean(lpipss)),
         }
+
+    @staticmethod
+    def _write_videos(out_dir):
+        """Assemble the eval PNGs into mp4s (reference
+        train_ngp_nerf_sg_occ.py:444-456), as JAX's trainer does. Without
+        imageio or a video codec no mp4 is written."""
+        import glob
+
+        try:
+            import imageio.v2 as imageio
+        except ImportError:
+            return
+        for pattern, name in (
+            ("rgb_test_*.png", "rgb.mp4"),
+            ("rgb_error_*.png", "rgb_error.mp4"),
+        ):
+            frames = sorted(glob.glob(os.path.join(out_dir, pattern)))
+            if len(frames) < 2:
+                continue
+            try:
+                imageio.mimsave(os.path.join(out_dir, name),
+                                [read_png(f) for f in frames], fps=20)
+            except Exception:
+                pass  # no video codec in minimal environments
 
     def save(self, path):
         """Weights, occupancy grid, Adam state and step, as the JAX

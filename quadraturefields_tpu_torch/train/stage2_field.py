@@ -460,6 +460,7 @@ class Stage2Trainer:
         self.step = int(state["step"])
         self.field_params = _as_leaf_params(state["field_params"])
         self._make_optimizer()
-        self.optimizer.load_state_dict(state["opt_state"])
+        if "opt_state" in state:  # a converted checkpoint has none
+            self.optimizer.load_state_dict(state["opt_state"])
         self.occ_state = OccGridState(
             occs=state["occs"], binaries=state["binaries"], aabb=self.aabb)

@@ -533,9 +533,10 @@ class Stage4Trainer:
         return torch.cat(outs)[:n]
 
     def evaluate(self, dataset, n_views=None):
-        """PSNR, SSIM (and LPIPS, NaN) over the first n_views views. The
-        render at up_sample x the resolution is box-averaged back (what
-        cv2.INTER_AREA computes for an integer factor)."""
+        """PSNR, SSIM and LPIPS (NaN without weights, utils/lpips.py) over
+        the first n_views views. The render at up_sample x the resolution
+        is box-averaged back (what cv2.INTER_AREA computes for an integer
+        factor)."""
         u = self.cfg.up_sample
         n = len(dataset)
         if n_views is not None:
@@ -619,6 +620,7 @@ class Stage4Trainer:
         self.params = {"rf": _as_leaf_params(state["radiance_field"]),
                        "field": _as_leaf_params(state["field_model"])}
         self._make_optimizer()
-        self.optimizer.load_state_dict(state["opt_state"])
+        if "opt_state" in state:  # a converted checkpoint has none
+            self.optimizer.load_state_dict(state["opt_state"])
         self.occ_state = OccGridState(
             occs=state["occs"], binaries=state["binaries"], aabb=self.aabb)

@@ -408,7 +408,8 @@ class Stage5Trainer:
         self.step = int(state["step"])
         self.sg_params = _as_leaf_params(state["radiance_field"])
         self._make_optimizer()
-        self.optimizer.load_state_dict(state["opt_state"])
+        if "opt_state" in state:  # a converted checkpoint has none
+            self.optimizer.load_state_dict(state["opt_state"])
         self.occ_state = OccGridState(
             occs=state["occs"], binaries=state["binaries"], aabb=self.aabb)
 

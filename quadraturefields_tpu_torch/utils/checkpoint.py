@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,10 @@ def load_checkpoint(path: str, map_location=None):
     """The saved tree; tensors land on `map_location` (default CPU)."""
     return torch.load(os.path.abspath(path), map_location=map_location,
                       weights_only=True)
+
+
+def save_grid_npy(path: str, arr) -> None:
+    """An array (a tensor on any device, or numpy) as a .npy file."""
+    if torch.is_tensor(arr):
+        arr = arr.detach().cpu().numpy()
+    np.save(path, np.asarray(arr))

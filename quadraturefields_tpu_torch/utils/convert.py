@@ -6,7 +6,9 @@ both packages), "mlp_base": {"layers": [{"w": [in, out]}, ...]},
 "mlp_head": {"layers": [{"w": [in, out], "b": [out]}, ...]}}. The port
 uses the same tree with torch tensors and keeps every `w` as
 [in, out] (y = x @ w), so nothing is transposed. The stage-2 field tree
-{"table", "decoder": {"layers": [...]}} carries across the same way.
+{"table", "decoder": {"layers": [...]}} and the vanilla and time-warped
+NeRF MLPs' trees {"base": {"hidden": [...], "out"}, ...} carry across the
+same way.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from ..ops.grid import OccGridState
 
 
 def _tree_to_torch(tree, device):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -32,6 +36,13 @@ def params_from_jax(np_tree, device=None):
 def field_params_from_jax(np_tree, device=None):
     """JAX field params (`field_init`'s tree, numpy leaves) -> the
     port's."""
+    return _tree_to_torch(np_tree, device)
+
+
+def mlp_nerf_params_from_jax(np_tree, device=None):
+    """JAX vanilla_nerf_init's or tnerf_init's tree (numpy leaves; an MLP
+    without an output layer has "out": None) -> the port's
+    (models/mlp_nerf.py)."""
     return _tree_to_torch(np_tree, device)
 
 

@@ -72,7 +72,17 @@ def ssim(img0, img1, max_val: float = 1.0, kernel_size=11, sigma=1.5):
     return (num / den).mean()
 
 
+_LPIPS_SINGLETON = None
+
+
 def lpips_metric(img0, img1) -> float:
-    """LPIPS(VGG) is not ported: NaN, as the JAX package reports when no
-    weights are installed."""
-    return float("nan")
+    """LPIPS(VGG) between [H, W, 3] images in [0, 1], on the images'
+    device; NaN when no weights are installed (utils/lpips.py,
+    QF_LPIPS_WEIGHTS). The module is built at the first call, as JAX's
+    singleton is."""
+    global _LPIPS_SINGLETON
+    if _LPIPS_SINGLETON is None:
+        from .lpips import LPIPS
+
+        _LPIPS_SINGLETON = LPIPS()
+    return float(_LPIPS_SINGLETON(img0, img1))

@@ -2,7 +2,8 @@
 seeded numpy inputs: the encode VJP (table and positions, also on
 ray-ordered samples with a padded budget), K1's interface
 (sorted_table_grad), K8's interface (the bf16 value-space
-form) and the VJP of the presorted segment sum. JAX runs on the CPU,
+form), the stochastic corner gradient and the VJP of the presorted
+segment sum. JAX runs on the CPU,
 its Pallas kernels in interpret mode as its own tests run them; the
 port runs each kernel's plain PyTorch version."""
 import jax
@@ -59,8 +60,7 @@ def test_encode_vjp_matches_jax(interp, n_features):
 
 @pytest.mark.parametrize("mode", ["exact", "sorted"])
 def test_grad_modes_share_one_function(mode):
-    """"exact" and "sorted" give the "auto" gradient bit for bit;
-    "stochastic" is refused."""
+    """"exact" and "sorted" give the "auto" gradient bit for bit."""
     kw = _grid_kw("tet", 2, "auto")
     rng = np.random.default_rng(3)
     cfg = thg.HashGridConfig(**kw)
@@ -75,8 +75,105 @@ def test_grad_modes_share_one_function(mode):
             (thg.hashgrid_encode(table, x, c) ** 2).sum(), table)[0]
 
     assert torch.equal(grad(mode), grad("auto"))
-    with pytest.raises(NotImplementedError):
-        grad("stochastic")
+
+
+def test_hash_u01_matches_jax_bit_for_bit():
+    """_hash_u01 of the clipped positions equals JAX's bit for bit, on
+    random points inside and outside the unit cube and on 0, 1 and -0.0
+    (torch.clamp keeps -0.0 where jnp.clip gives +0.0; _clip01 follows
+    JAX)."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-0.3, 1.3, (5000, 3)).astype(np.float32)
+    x[:6] = [[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [-0.0, -0.0, -0.0],
+             [-0.0, 0.5, 1.0], [1.0, -0.0, 0.25], [-2.0, 3.0, -0.0]]
+    assert np.signbit(x[2]).all()
+    want = np.asarray(jhg._hash_u01(jnp.clip(jnp.asarray(x), 0.0, 1.0), 16))
+    got = thg._hash_u01(thg._clip01(torch.tensor(x)), 16).numpy()
+    assert got.shape == want.shape == (16, 5000)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    # the raw bits too, -0.0 unclipped
+    want = np.asarray(jhg._hash_u01(jnp.asarray(x), 5))
+    got = thg._hash_u01(torch.tensor(x), 5).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _jax_picks(x, cfg):
+    """JAX's stochastic pick (ops/hashgrid.py:791-812) with its own
+    functions: the picked row [N, L], u [N, L] and the cumulative
+    weights [N, L, C]."""
+    n, L, C = x.shape[0], cfg.n_levels, cfg.corners
+    xc = jnp.clip(jnp.asarray(x), 0.0, 1.0)
+    idx, w = jhg._corner_indices_weights(xc, cfg)
+    u = np.asarray(jhg._hash_u01(xc, L)).T
+    cdf = np.asarray(jnp.cumsum(w.reshape(n, L, C), axis=2))
+    sel = (u[:, :, None] >= cdf[:, :, :C - 1]).sum(axis=2)
+    rows = np.take_along_axis(np.asarray(idx).reshape(n, L, C),
+                              sel[:, :, None], axis=2)[:, :, 0]
+    return rows, u, cdf
+
+
+@pytest.mark.parametrize("interp", ["tet", "cube"])
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_stochastic_grad_matches_jax(interp, n_features):
+    """grad_mode "stochastic": the picks equal JAX's on every (point,
+    level) but those where u lies within 2 ulp of a cumulative weight
+    (f32 sums of JAX's cumsum and of the port's running sum may differ
+    there); such ties are counted and must be rare. The table gradient
+    within 1e-5 of max |d_table| of jax.vjp of the stochastic encode,
+    d_x within 1e-4 (the exact pullback, as in JAX)."""
+    jcfg = jhg.HashGridConfig(**_grid_kw(interp, n_features, "stochastic"))
+    tcfg = thg.HashGridConfig(**_grid_kw(interp, n_features, "stochastic"))
+    rng = np.random.default_rng(20 + n_features)
+    n = 3000
+    x = rng.uniform(0.02, 0.98, (n, 3)).astype(np.float32)
+    table = rng.uniform(-1, 1, (jcfg.total_entries, n_features)) \
+        .astype(np.float32)
+    g = rng.normal(size=(n, jcfg.output_dim)).astype(np.float32)
+
+    want, u, cdf = _jax_picks(x, jcfg)
+    got = thg.stochastic_picks_plain(torch.tensor(x), tcfg).numpy()
+    differ = got != want
+    ulp = np.spacing(np.abs(cdf[:, :, :-1]).astype(np.float32))
+    near = (np.abs(u[:, :, None] - cdf[:, :, :-1]) <= 2 * ulp).any(axis=2)
+    assert not (differ & ~near).any()
+    assert differ.sum() <= 1e-3 * differ.size, differ.sum()
+
+    _, pull = jax.vjp(lambda t, xx: jhg.hashgrid_encode(t, xx, jcfg),
+                      jnp.asarray(table), jnp.asarray(x))
+    dt_j, dx_j = (np.asarray(a) for a in pull(jnp.asarray(g)))
+    tt = torch.tensor(table, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    dt_t, dx_t = torch.autograd.grad(thg.hashgrid_encode(tt, tx, tcfg),
+                                     (tt, tx), torch.tensor(g))
+    # no tie falls among these points, so the sums hold the same picks
+    assert np.abs(dt_t.numpy() - dt_j).max() <= 1e-5 * np.abs(dt_j).max()
+    np.testing.assert_allclose(dx_t.numpy(), dx_j, rtol=0, atol=1e-4)
+    # the same picks, summed: the plain stochastic sum of the picked rows
+    ref = np.zeros_like(table, dtype=np.float64)
+    np.add.at(ref, got.reshape(-1), g.reshape(-1, n_features))
+    assert np.abs(dt_t.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_stochastic_grad_is_unbiased():
+    """Averaged over many fresh point draws, the stochastic table
+    gradient converges to the exact one (JAX's
+    tests/test_hashgrid.py::test_grad_mode_stochastic_unbiased, at its
+    sizes and bound)."""
+    kw = dict(n_levels=3, log2_hashmap_size=6, base_resolution=4,
+              per_level_scale=2.0, interp="tet")
+    cfg_e = thg.HashGridConfig(grad_mode="exact", **kw)
+    cfg_s = thg.HashGridConfig(grad_mode="stochastic", **kw)
+    gen = torch.Generator().manual_seed(0)
+    table = thg.hashgrid_init(gen, cfg_e).requires_grad_(True)
+    acc_s = torch.zeros_like(table)
+    acc_e = torch.zeros_like(table)
+    for _ in range(150):
+        xr = torch.rand((1024, 3), generator=gen)
+        for cfg, acc in ((cfg_s, acc_s), (cfg_e, acc_e)):
+            acc += torch.autograd.grad(
+                thg.hashgrid_encode(table, xr, cfg).sum(), table)[0]
+    rel = float(torch.linalg.norm(acc_s - acc_e) / torch.linalg.norm(acc_e))
+    assert rel < 0.05, rel
 
 
 def _ray_samples(rng, n, n_pad):

@@ -3,7 +3,8 @@
 Each test builds its kernel from csrc/ (nvcc, sm_90a) and compares it
 with the plain version on the same CUDA tensors, on the edge cases that
 random main-path inputs rarely reach: the encode, its fused table
-gradient (also on ray-ordered samples with a padded budget, and both on
+gradient (also in its stochastic form, on ray-ordered samples with a
+padded budget, and both on
 the stage-2 and stage-4 field tables, last rows included), the pair
 segment sum and K8's one-launch value-layout interface (also on
 ray-ordered streams whose lanes merge), the occupancy bits, the per-ray
@@ -292,6 +293,55 @@ def test_table_grad_kernel_matches_plain(dev, interp, n_features):
     assert hg.ENCODE_BWD_KERNEL.launches == before + 1
     want = hg.table_grad_plain(x, cot.double(), cfg)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("interp", ["cube", "tet"])
+@pytest.mark.parametrize("n_features", [1, 2, 4, 8])
+def test_table_grad_stochastic_kernel_matches_plain(dev, interp,
+                                                    n_features):
+    """K1's stochastic form (grad_mode "stochastic") through
+    hashgrid_encode's backward, on one dense and one hashed level, on
+    random points in and outside the cube, the cube's corners and faces,
+    -0.0 coordinates and zero-cotangent padding: it launches once and
+    the exact K1 never; its picks equal the plain version's (tet: the
+    same weights and running sums bit for bit; cube: but where u lies
+    within 2 ulp of a cumulative weight); its gradient within 1e-5 of
+    max of the float64 plain sum of the rows it picked."""
+    cfg = hg.HashGridConfig.from_max_resolution(
+        512, n_levels=2, n_features=n_features, log2_hashmap_size=14,
+        interp=interp, grad_mode="stochastic")
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = (torch.rand((cfg.total_entries, n_features), generator=g,
+                        device=dev) * 2 - 1).requires_grad_(True)
+    x = torch.rand((20000, 3), generator=g, device=dev) * 1.2 - 0.1
+    x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                          [-0.0, -0.0, -0.0], [-0.0, 0.5, 1.0],
+                          [1.0, -0.0, 0.25], [-2.0, 3.0, -0.0]])
+    cot = torch.randn((20000, cfg.output_dim), generator=g, device=dev)
+    cot[-500:] = 0.0
+    exact = hg.ENCODE_BWD_KERNEL.launches
+    before = hg.ENCODE_BWD_STOCHASTIC_KERNEL.launches
+    (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
+                                 cot)
+    torch.cuda.synchronize()
+    assert hg.ENCODE_BWD_STOCHASTIC_KERNEL.launches == before + 1
+    assert hg.ENCODE_BWD_KERNEL.launches == exact
+    xc = x.clamp(0.0, 1.0)
+    out, picks = hg.table_grad_stochastic_kernel(xc, cot, cfg,
+                                                 with_picks=True)
+    want_picks = hg.stochastic_picks_plain(xc, cfg)
+    differ = picks != want_picks
+    if interp == "tet":
+        assert not bool(differ.any())
+    else:
+        assert int(differ.sum()) <= 1e-3 * differ.numel()
+    want = torch.zeros((cfg.total_entries, n_features), dtype=torch.float64,
+                       device=dev)
+    want.index_add_(0, picks.reshape(-1),
+                    cot.double().reshape(-1, n_features))
+    scale = float(want.abs().max())
+    assert float((out - want).abs().max()) <= 1e-5 * scale
+    assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("interp", ["tet", "cube"])

@@ -138,7 +138,9 @@ def test_metrics_match_jax():
 
 
 def test_port_runs_without_jax():
-    """A fresh interpreter imports the port (stages 5 and 6 included),
+    """A fresh interpreter imports the port (stages 5 and 6, LPIPS, the
+    profiling utilities, the NeRF MLPs, every data loader and the
+    checkpoint converter included),
     takes one training step and renders a tiny batch on the CPU, and has
     imported neither jax nor any module of the JAX package."""
     code = """
@@ -152,6 +154,13 @@ import quadraturefields_tpu_torch.cli.train_fit_sg
 import quadraturefields_tpu_torch.data.own_views
 import quadraturefields_tpu_torch.render.baked
 import quadraturefields_tpu_torch.train.stage5_fit_sg
+import quadraturefields_tpu_torch.cli.convert_reference_ckpt
+import quadraturefields_tpu_torch.data.dnerf_synthetic
+import quadraturefields_tpu_torch.data.ray_utils
+import quadraturefields_tpu_torch.data.tandt
+import quadraturefields_tpu_torch.models.mlp_nerf
+import quadraturefields_tpu_torch.utils.lpips
+import quadraturefields_tpu_torch.utils.profiling
 
 class Views:
     HEIGHT = WIDTH = 16

@@ -1,8 +1,10 @@
 """The port's stage-1 training against the JAX trainer's: the
 regularizers, one full training step (loss and gradients) on the same
 weights, batch and stratified jitter for a synthetic and a 360 scene,
-then a port-only training run on the fixture scene and the training CLI
-on a written fixture dataset."""
+and with the stochastic corner gradient; the eval images that
+save_images writes; one stochastic step of stages 2 and 4; then a
+port-only training run on the fixture scene and the training CLI on a
+written fixture dataset."""
 import functools
 import json
 import os
@@ -176,6 +178,138 @@ def test_training_step_matches_jax(scene_type, fixture_root):
         assert abs(na / nb - 1.0) <= 0.01
 
 
+def test_stochastic_training_step_matches_eager_jax(fixture_root):
+    """One step with grad_mode "stochastic" (the corner pick from the
+    hashed sample positions): the loss within 1e-5 relative of the JAX
+    trainer's, each gradient with cosine >= 0.999 and norm within 1%, as
+    for "exact". JAX runs eagerly (jax.disable_jit): jitted XLA fuses
+    the sample positions' arithmetic, and one ulp of a position draws
+    another uniform and so another corner (the table gradient's cosine
+    then falls to ~0.94); eager JAX computes the port's positions bit
+    for bit."""
+    jtr, ttr, (o, d, px, bkgd) = _trainers("synthetic", fixture_root,
+                                           grad_mode="stochastic")
+    key = jax.random.PRNGKey(5)
+    with jax.disable_jit():
+        (lj, auxj), gj = jax.value_and_grad(jtr._loss_fn, has_aux=True)(
+            jtr.params, jtr.occ_state, jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(px), jnp.asarray(bkgd), key)
+    u = np.asarray(jax.random.uniform(key, (o.shape[0],)))
+    lt, auxt = ttr._loss_fn(ttr.params, ttr.occ_state, torch.tensor(o),
+                            torch.tensor(d), torch.tensor(px),
+                            torch.tensor(bkgd), torch.tensor(u))
+    lt.backward()
+    assert int(auxt["num_valid"]) == int(auxj["num_valid"]) > 0
+    np.testing.assert_allclose(float(lt), float(lj), rtol=1e-5)
+    jleaves = jax.tree_util.tree_leaves(gj)
+    tleaves = [p.grad for p in tst._leaves(ttr.params)]
+    assert len(jleaves) == len(tleaves)
+    for a, b in zip(tleaves, jleaves):
+        a, b = a.numpy().ravel(), np.asarray(b).ravel()
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        assert nb > 0
+        assert a @ b / (na * nb) >= 0.999
+        assert abs(na / nb - 1.0) <= 0.01
+
+
+def test_save_images_writes_jax_pngs(fixture_root, tmp_path):
+    """evaluate(out_dir) with save_images: rgb_test_000.png and
+    rgb_error_000.png decode (with the port's reader and with imageio) to
+    the pixels JAX's evaluate writes with imageio for the same render
+    (JAX's trainer handed the port's view)."""
+    import imageio.v2 as imageio
+
+    from quadraturefields_tpu_torch.utils.png import read_png
+
+    jtr, ttr, _ = _trainers("synthetic", fixture_root, save_images=True,
+                            eval_chunk=1024)
+    data = ttr.test_dataset.fetch_eval_view(0)
+    view = ttr.render_view(data)
+    assert 0.0 < float(view.min()) < 0.9
+    jtr.render_view = lambda data: view.numpy()
+    out_t, out_j = tmp_path / "port", tmp_path / "jax"
+    out_t.mkdir()
+    out_j.mkdir()
+    ttr.evaluate(str(out_t))
+    jtr.evaluate(str(out_j))
+    for name in ("rgb_test_000.png", "rgb_error_000.png"):
+        want = imageio.imread(str(out_j / name))
+        assert want.dtype == np.uint8 and want.shape == (32, 32, 3)
+        np.testing.assert_array_equal(read_png(str(out_t / name)), want)
+        np.testing.assert_array_equal(imageio.imread(str(out_t / name)),
+                                      want)
+    pixels = np.asarray(data["pixels"], np.float32).reshape(32, 32, 3)
+    err = read_png(str(out_t / "rgb_error_000.png"))
+    assert err.max() > 0
+    np.testing.assert_array_equal(
+        err, (np.clip(np.abs(view.numpy().reshape(32, 32, 3) - pixels),
+                      0, 1) * 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("stage", [2, 4])
+def test_later_stages_step_with_stochastic_corner_gradient(stage,
+                                                           monkeypatch):
+    """Stage 2 and stage 4 with grad_mode "stochastic" on their corner
+    tables: one training step runs, takes the stochastic table gradient
+    and moves the trained table."""
+    from quadraturefields_tpu_torch.models.ngp import ngp_init
+    from quadraturefields_tpu_torch.ops import hashgrid as thg
+    from quadraturefields_tpu_torch.train import stage2_field as tst2
+    from quadraturefields_tpu_torch.train import stage4_finetune as tst4
+    from test_torch_quadrature import SMALL, sphere_mesh
+    from test_torch_render_field import occupancy
+    from test_torch_stage4 import _Views
+    from quadraturefields_tpu_torch.geometry.meshio import Mesh
+
+    calls = []
+    real = thg.table_grad_stochastic_plain
+
+    def counting(*args):
+        calls.append(args[2])
+        return real(*args)
+
+    monkeypatch.setattr(thg, "table_grad_stochastic_plain", counting)
+    gen = torch.Generator().manual_seed(0)
+    if stage == 2:
+        cfg = tst2.Stage2Config(
+            n_levels=4, log2_hashmap_size=12, batch_size_log2=13,
+            render_step_size=2e-2, num_lobes=0, field_log2_hashmap_size=12,
+            field_max_res=64, grid_export_size=16, scene="fixture",
+            grad_mode="stochastic")
+        ngp = ngp_init(gen, cfg.ngp_config())
+        ngp["table"] = ngp["table"] * 1e4
+        occs, binaries = occupancy("synthetic", cfg.grid_resolution,
+                                   cfg.render_step_size)
+        tr = tst2.Stage2Trainer(
+            cfg, ngp_params=ngp, train_dataset=_Views(),
+            occ_state=occ_state_from_jax(occs, binaries, cfg.aabb),
+            device="cpu")
+        table = lambda: tr.field_params["table"]  # noqa: E731
+    else:
+        cfg = tst4.Stage4Config(
+            **SMALL, scene="fixture", batch_size_log2=13, max_hits=6,
+            render_step_size=2e-2, freeze_rf_steps=0, max_steps=100,
+            grad_mode="stochastic")
+        ngp = ngp_init(gen, cfg.ngp_config())
+        ngp["table"] = ngp["table"] * 1e4
+        occs, binaries = occupancy("synthetic", cfg.grid_resolution,
+                                   cfg.render_step_size)
+        tr = tst4.Stage4Trainer(
+            cfg, ngp_params=ngp, mesh=Mesh(*sphere_mesh()),
+            occ_state=occ_state_from_jax(occs, binaries, cfg.aabb),
+            train_dataset=_Views(), device="cpu")
+        table = lambda: tr.params["field"]["table"]  # noqa: E731
+    before = table().detach().clone()
+    try:
+        out = tr.train_one_step()
+    finally:
+        if stage == 4:
+            tr.prefetcher.stop()
+    assert np.isfinite(float(out[0])) and tr.step == 1
+    assert calls and all(c.grad_mode == "stochastic" for c in calls)
+    assert not torch.equal(table().detach(), before)
+
+
 def test_port_trains_the_fixture_scene(tmp_path):
     """The port alone, at tests/test_stage1_end_to_end.py's settings
     with a smaller grid (4 levels, 2^12 rows) and 120 steps: the loss
@@ -236,3 +370,42 @@ def test_cli_trains_on_a_fixture_dataset(tmp_path, monkeypatch):
     assert os.path.isdir(tmp_path / "runs" / "logs" / "fixture" / "nerf")
     with pytest.raises(NotImplementedError):
         tcli.main(argv + ["--num_devices", "2"], device="cpu")
+
+
+@pytest.mark.slow
+def test_stochastic_quality_cost_on_the_cpu(tmp_path):
+    """Both packages train the fixture scene for 300 steps with the
+    exact and with the stochastic corner gradient (chip_smoke.py phase
+    4's and phase 10's trainer defaults, cut to a 48^2 fixture, L8 F2
+    2^14 rows, a 32^3 grid and 2^14 samples a step), at seeds 42-44, and
+    evaluate; prints each run's PSNR and each package's cost of the
+    stochastic mode. chip_smoke.py's phase 10 gate STOCHASTIC_PSNR_MARGIN
+    is set from these readings, and every cost must lie within it
+    here."""
+    from chip_smoke import STOCHASTIC_PSNR_MARGIN
+
+    data = str(tmp_path / "data")
+    jax_write_fixture(data, res=48, n_train=8, n_test=2)
+    kw = dict(scene="fixture", data_root=data, max_steps=300,
+              init_batch_size=512, batch_size_log2=14, grid_resolution=32,
+              render_step_size=2e-2, n_levels=8, log2_hashmap_size=14,
+              eval_chunk=2304, ckpt_every=10**9, log_every=10**9)
+    psnrs = {}
+    for name, mod, dev in (("jax", jst, {}), ("port", tst, {"device": "cpu"})):
+        for seed in (42, 43, 44):
+            for mode in ("exact", "stochastic"):
+                tr = mod.Stage1Trainer(mod.Stage1Config(
+                    root=str(tmp_path / name / mode), grad_mode=mode,
+                    seed=seed, **kw), **dev)
+                while tr.step <= kw["max_steps"]:
+                    tr.train_one_step()
+                psnrs[name, seed, mode] = tr.evaluate()["psnr"]
+                print(f"{name} seed {seed} {mode}: eval PSNR "
+                      f"{psnrs[name, seed, mode]:.4f} dB")
+    for name in ("jax", "port"):
+        for seed in (42, 43, 44):
+            cost = (psnrs[name, seed, "exact"]
+                    - psnrs[name, seed, "stochastic"])
+            print(f"{name} seed {seed}: the stochastic mode costs "
+                  f"{cost:.4f} dB (margin {STOCHASTIC_PSNR_MARGIN})")
+            assert cost <= STOCHASTIC_PSNR_MARGIN, (name, seed, cost)

@@ -279,6 +279,90 @@ def test_evaluate_baked_matches_jax(baked, atlases, tmp_path):
     assert np.isfinite(res["port"]["psnr"]) and res["port"]["fps"] > 0
 
 
+def test_bake_cli_prune_and_uv_flags_match_jax(tmp_path):
+    """The two CLIs' `prune` with --prune_spiral_views (2 views a ring,
+    3 rings at distance 2.5) and `uv` with --min_segment_size, on one
+    fixture dataset, teacher (JAX's init as models() lifts it, saved
+    for each package) and sphere mesh: the triangle weights within 1e-4
+    of max of JAX's CLI run eagerly (its jitted prune moves them, as
+    test_prune_mesh_matches_jax measures), the kept faces equal but near
+    the threshold; from one jittered sphere, every `uv` artifact byte for
+    byte JAX's. A larger --min_segment_size leaves fewer segments than
+    the adaptive default."""
+    from quadraturefields_tpu.cli import bake as jcli6
+    from quadraturefields_tpu.utils.checkpoint import (
+        save_checkpoint as jax_save,
+    )
+    from quadraturefields_tpu_torch.cli import bake as tcli6
+    from quadraturefields_tpu_torch.data.fixture import write_fixture_dataset
+    from quadraturefields_tpu_torch.geometry.meshio import load_ply, save_ply
+    from quadraturefields_tpu_torch.utils.checkpoint import save_checkpoint
+
+    data = str(tmp_path / "data")
+    write_fixture_dataset(data, res=16, n_train=2, n_test=1)
+    # the JAX CLI's teacher: the mlp head, cube interpolation
+    cfg = jngp.NGPConfig(head="mlp", use_viewdirs=False, num_layers=2,
+                         log2_hashmap_size=10)
+    p = jngp.ngp_init(jax.random.PRNGKey(8), cfg)
+    p["table"] = p["table"] * 1e4
+    last = p["mlp_base"]["layers"][-1]
+    last["w"] = last["w"] * 8.0
+    jax_ckpt = str(tmp_path / "jax_teacher")
+    jax_save(jax_ckpt, {"radiance_field": p})
+    port_ckpt = str(tmp_path / "teacher.pt")
+    save_checkpoint(port_ckpt, {"radiance_field": params_from_jax(_np(p))})
+    mesh_path = str(tmp_path / "mesh.ply")
+    save_ply(mesh_path, TMesh(*_mesh()))
+    common = ["--scene", "fixture", "--data_root", data, "--mesh_path",
+              mesh_path, "--log2_hashmap_size", "10", "--max_hits", "8",
+              "--prune_spiral_views", "2", "--prune_spiral_distance", "2.5",
+              "--texture_size", "128"]
+    jroot, troot = str(tmp_path / "jax_runs"), str(tmp_path / "port_runs")
+    jout = os.path.join(jroot, "results", "fixture", "baking")
+    tout = os.path.join(troot, "results", "fixture", "baking")
+    with jax.disable_jit():
+        jcli6.main(["prune", "--root", jroot, "--ckpt_path", jax_ckpt,
+                    *common])
+    tcli6.main(["prune", "--root", troot, "--ckpt_path", port_ckpt,
+                "--interp", "cube", *common], device="cpu")
+    jw = np.load(os.path.join(jout, "triangle_weights.npy"))
+    tw = np.load(os.path.join(tout, "triangle_weights.npy"))
+    scale = np.abs(jw).max()
+    assert scale > 0
+    assert np.abs(tw - jw).max() <= 1e-4 * scale
+    thres = 1e-3   # prune_mesh's weight_thres, which the CLIs keep
+    near = np.abs(jw - thres) <= 1e-4 * scale
+    assert ((tw > thres) == (jw > thres))[~near].all()
+    kept = load_ply(os.path.join(tout, "mesh_updated.ply")).faces.shape[0]
+    assert 0 < kept < _mesh()[1].shape[0]
+
+    # `uv` in both run directories from one connected mesh (the pruned
+    # one falls into small pieces that no merge floor joins): the
+    # sphere, jittered as the atlases fixture jitters it
+    verts, faces = _mesh()
+    rng = np.random.default_rng(2)
+    verts = (verts * (1 + 0.03 * rng.normal(size=(verts.shape[0], 1)))) \
+        .astype(np.float32)
+    for out in (jout, tout):
+        save_ply(os.path.join(out, "mesh_updated.ply"), TMesh(verts, faces))
+    uv = ["uv", *common, "--min_segment_size", "60"]
+    jcli6.main([*uv, "--root", jroot, "--ckpt_path", jax_ckpt])
+    tcli6.main([*uv, "--root", troot, "--ckpt_path", port_ckpt, "--interp",
+                "cube"], device="cpu")
+    names = ["atlas_stats.json", "mesh_updated.0.010000.segs.json",
+             "mesh_segmentation_128.obj", "V_128.npy", "atlas_uv.npy",
+             "tri_image.npy"]
+    for name in names:
+        assert filecmp.cmp(os.path.join(tout, name),
+                           os.path.join(jout, name), shallow=False), name
+    segs = os.path.join(tout, "mesh_updated.0.010000.segs.json")
+    floor = set(json.load(open(segs))["segIndices"])
+    tcli6.main(["uv", *common, "--root", troot, "--ckpt_path", port_ckpt,
+                "--interp", "cube"], device="cpu")
+    default = set(json.load(open(segs))["segIndices"])
+    assert len(floor) < len(default), (len(floor), len(default))
+
+
 def test_cli_chain_stage5_to_stage6(tmp_path, monkeypatch):
     """The stage-4 CLI's finetune.pt and mesh.ply and the stage-5 CLI's
     fit_sg.pt feed the bake CLI's `all` (run_nerfsynthetic_baking.sh's
