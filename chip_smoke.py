@@ -14,7 +14,8 @@
         # with `git archive`) beside this one's, in turns, on the same
         # inputs
 
-Phases (any failure raises and exits non-zero):
+Phases, run in the order 1-5, 11, 7, 8, 12, 13, 9, 10, 6 (any failure
+raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
      quadraturefields_tpu_torch/csrc, one nvcc per source, all at once,
      and beside them the host geometry library (g++);
@@ -57,7 +58,9 @@ Phases (any failure raises and exits non-zero):
      the bf16pair table gradient ("train_cell_bf16pair"): K6's fused
      entry once a step; every other cell table gradient never;
   6. K1, K2, K3, K5, K6, K7 and K8 again, on the main paths' own inputs
-     captured in phases 3-5 and 7-10 (it runs last; K1's stochastic form
+     captured in phases 3-5 and 7-13 (it runs last; K2, K1 and K3 on a
+     360 step; K1's stream interface and K5's stream entry on the
+     second-order streams of phase 13; K1's stochastic form
      on phase 4's corner step beside the exact K1, and on a phase-10
      step): the positions of
      one eval chunk (all its slots, and its valid samples alone), of one
@@ -160,6 +163,37 @@ Phases (any failure raises and exits non-zero):
      (utils/profiling.device_trace) names the kernel; one forward of the
      vanilla NeRF and T-NeRF MLPs on the card against the CPU within
      1e-5; ms/step, rays/s and samples/s beside phase 4's.
+ 11. the unbounded 360 path ("train_360"): Stage1Trainer.train at
+     Stage1Config(scene_type="360") (the trainer defaults' model; the
+     contracted [-1, 1]^3 aabb, cone stepping from near 0.2 to far 100,
+     ~1,554 march slots a ray, no coarse level) for 300 steps on the
+     same views, from the 360 loader's 10 rays a step: K2, K3 and K1
+     (once a step) launch, K4 never (the contracted march reads the
+     dense grid, as JAX's); gates: the loss falls, the eval PSNR at
+     least the views' background alone less TRAIN_360_PSNR_MARGIN and
+     plus TRAIN_360_CARD_GAIN; one
+     step and one eval view against the plain
+     path; ms/step, rays/s, samples/s, the most rays a step and the
+     peak device memory;
+ 12. stage 4 in the cell layout ("train_finetune_cell"): phase 8's
+     Stage4Trainer with run_nerfsynthetic_tpu_fast.sh's --layout cell
+     --grad_payload bf16factor --n_levels 8 --n_features 4 on phase 5's
+     checkpoint and phase 8's smp_mesh.ply (the deformation field a
+     cell tet L16 F2 table of 18,363,552 rows x 16 f32, 1.18 GB), 400
+     steps with phase 8's gates and comparisons: a fused cell table
+     gradient (JAX's route for each table and point count) once a
+     frozen and three times a joint step, the corner K1 and the stream
+     entries never;
+ 13. back_prop=True of the quadrature field ("field_back_prop"): phase
+     7's Stage2Trainer from phase 7's feeder with field_cfg set to
+     back_prop=True, BACK_PROP_STEPS steps: the fused K1 and K1's stream
+     interface (the table gradient of the position gradient) once a
+     step each; beside it a cell tet L16 F2 field (log2_T 24) from
+     phase 5's checkpoint, BACK_PROP_STEPS steps: K5's fused and
+     stream entries once a step each; the losses fall; ms/step beside
+     phase 7's, the stream entries' time in situ, one step of each
+     against the plain path, and the streams for phase 6 (each stream
+     entry against index_add_ of its own stream in float64).
 Reduced sizes, against the scripts: the stage-1 feeder runs 300 steps at
 2^18 samples (run_nerfsynthetic.sh: 20,000 at 2^20); stage 2 runs 300
 of its 25,000 steps; the export is 256^3 (the CLI's default 1024^3);
@@ -167,7 +201,9 @@ stage 4 runs 400 of its 10,000 steps with a mesh update every 200
 (the script: 2000) and evaluates 2 views; stage 5 runs 500 of its
 20,000 steps (its schedule's milestones, max/4 and max*6/10 of 499
 steps, fall at steps 124 and 299); stage 6 prunes and evaluates on the
-same 4 views;
+same 4 views; the 360 path runs 300 of its 20,000 steps on the fixture
+views (nerf_360_v2 scenes are not in the repo); the cell stage 4 runs
+phase 8's 400 steps; the back_prop fields run 100 steps each;
 the views are 4 fixture views of 256^2 (the scripts: nerf-synthetic
 chair). The field, the NGP and the 2^18 stage-2 budget run at the
 scripts' widths.
@@ -178,6 +214,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -186,7 +223,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from functools import partial
 from pathlib import Path
 from unittest import mock
@@ -198,6 +235,16 @@ import numpy as np
 # and operations / f32 rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+def free_device_memory():
+    """Collect the dropped trainers (a trainer whose train_one_step was
+    patched and restored on the instance holds itself in a cycle) and
+    return their device memory to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond, msg):
@@ -1079,8 +1126,6 @@ def fixture_occupancy(trainer):
 
 def plain_path():
     """Every kernel of the paths patched with its plain version."""
-    from contextlib import ExitStack
-
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.ops import occ_bits as ob
@@ -1092,6 +1137,7 @@ def plain_path():
         (hg, "table_grad_stochastic_kernel", hg.table_grad_stochastic_plain),
         (ob, "lookup_bits_kernel", ob.lookup_bits_plain),
         (hs, "segment_sum_kernel", hs.segment_sum_plain),
+        (hs, "table_grad_pairs_kernel", hs.table_grad_pairs_plain),
         (hs, "row_grad_kernel", hs.row_grad_plain),
         (hs, "pair_grad_kernel", hs.pair_grad_plain),
         (hs, "tet_factor_grad_kernel", hs.tet_factor_grad_plain),
@@ -1253,25 +1299,36 @@ def field_step_grads(torch, trainer, batch):
         trainer.field_params, *batch)[0])
 
 
+# phases 4 and 5's training gates: the last-20 mean loss under this share
+# of the first-20 mean, the final eval PSNR above this (dB), the occupied
+# share of the grid under this
+STAGE1_GATES = dict(loss_ratio=0.5, psnr=20.0, occupied=0.5)
+
+
 def train_slice(torch, kernels, card, views, name, cfg, must_launch,
-                table_grad, captured, profile: bool, out=None, setup=None):
-    """Phases 4 and 5: Stage1Trainer.train at `cfg` for 300 steps (the
-    path `name`). Every kernel named in `must_launch` must launch in the
-    run; `table_grad` names the table-gradient kernel whose output
-    compare_step holds against a float64 sum. The arguments of the
-    encode and of its table gradient (corner layout), of the fused cell
-    table gradients (K7, K5, K6) and of K3 (the composite) in one
-    training step land in captured["train_step"], ["corner_grad_step"],
+                table_grad, captured, profile: bool, out=None, setup=None,
+                init_rays=None, gates=STAGE1_GATES, keys=None):
+    """Phases 4, 5 and 11: Stage1Trainer.train at `cfg` for 300 steps
+    (the path `name`), from `init_rays` rays a step (the config's
+    init_batch_size by default). Every kernel named in `must_launch`
+    must launch in the run; `table_grad` names the table-gradient kernel
+    whose output compare_step holds against a float64 sum; `gates` as
+    STAGE1_GATES (None skips one). The arguments of the encode and of
+    its table gradient (corner layout), of the fused cell table
+    gradients (K7, K5, K6) and of K3 (the composite) in one training
+    step land in captured["train_step"], ["corner_grad_step"],
     ["cell_step"], ["cell_f32_step"], ["cell_bf16pair_step"],
-    ["stochastic_grad_step"] and [name + "_composite"]. setup(trainer)
-    runs before the training; `out` (a dict) receives the trainer, the
-    final eval's metrics and the steady-state readings. Returns
-    (launches, training steps)."""
+    ["stochastic_grad_step"] and [name + "_composite"]; `keys` maps a
+    kernel function's name to another key. setup(trainer) runs before
+    the training;
+    `out` (a dict) receives the trainer, the final eval's metrics, the
+    steady-state readings, the most rays a step and the peak device
+    memory of the run. Returns (launches, training steps)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Trainer
 
-    views.update_num_rays(cfg.init_batch_size)
+    views.update_num_rays(init_rays or cfg.init_batch_size)
     trainer = Stage1Trainer(cfg, train_dataset=views, test_dataset=views)
     budget = trainer.rcfg.max_samples_total
     record = []  # (end time, rays, samples, loss) per step
@@ -1289,24 +1346,34 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
     if setup is not None:
         setup(trainer)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     metrics, launches = count_launches(kernels, trainer.train)
     train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     losses = [r[3] for r in record]
+    max_rays = max(r[1] for r in record)
     occ_frac = float(trainer.occ_state.binaries.float().mean())
     print(f"{name}: {len(record)} steps + final evaluate in {train_s:.2f} s; "
           f"eval {metrics}; occupied cells {occ_frac:.4f}; kernel "
-          f"launches {launches}")
+          f"launches {launches}; at most {max_rays} rays a step; peak "
+          f"device memory {peak / 2**30:.3f} GiB [{card}]")
     for kernel_name in must_launch:
         check(launches[kernel_name] > 0,
               f"the training path never launched {kernel_name}")
     check(all(np.isfinite(losses)), "non-finite training loss")
     first, last = np.mean(losses[:20]), np.mean(losses[-20:])
     print(f"loss: mean of the first 20 steps {first:.6f}, of the last 20 "
-          f"{last:.6f} (must be < half)")
-    check(last < 0.5 * first, "the training loss did not halve")
-    check(metrics["psnr"] > 20.0, f"eval PSNR {metrics['psnr']} <= 20 dB")
-    check(occ_frac < 0.5, f"occupied share {occ_frac} >= 0.5")
+          f"{last:.6f} (ratio {last / first:.4f}, must be < "
+          f"{gates['loss_ratio']})")
+    check(last < gates["loss_ratio"] * first,
+          f"the training loss ratio {last / first} is not under "
+          f"{gates['loss_ratio']}")
+    check(metrics["psnr"] > gates["psnr"],
+          f"eval PSNR {metrics['psnr']} <= {gates['psnr']} dB")
+    if gates["occupied"] is not None:
+        check(occ_frac < gates["occupied"],
+              f"occupied share {occ_frac} >= {gates['occupied']}")
 
     # steady state over steps 150-300 (step 100 turned the dynamic
     # batch on, step 256 ended the occupancy warm-up)
@@ -1325,7 +1392,9 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
     if out is not None:
         out.update(trainer=trainer, metrics=metrics, ms_step=ms_step,
                    rays_per_s=rays / steady_s,
-                   samples_per_s=samples / steady_s, losses=losses)
+                   samples_per_s=samples / steady_s, losses=losses,
+                   loss_ratio=last / first, max_rays=max_rays,
+                   peak_bytes=peak, occupied=occ_frac)
 
     # one step on the kernel path against the plain path, on the card,
     # with the trained weights, one batch and one stratified jitter
@@ -1336,15 +1405,17 @@ def train_slice(torch, kernels, card, views, name, cfg, must_launch,
                        data["pixels"], data["color_bkgd"])]
     batch.append(torch.rand((batch[0].shape[0],), generator=trainer.generator,
                             device=dev))
-    with capture(hg, "encode_kernel", captured, "train_step"), \
-            capture(hg, "table_grad_kernel", captured, "corner_grad_step"), \
-            capture(hg, "table_grad_stochastic_kernel", captured,
-                    "stochastic_grad_step"), \
-            capture(hg, "tet_factor_grad_x_kernel", captured, "cell_step"), \
-            capture(hg, "cell_row_grad_x_kernel", captured, "cell_f32_step"), \
-            capture(hg, "cell_pair_grad_x_kernel", captured,
-                    "cell_bf16pair_step"), \
-            capture(hs, "segment_sum_kernel", captured, f"{name}_composite"):
+    keys = dict(dict(encode_kernel="train_step",
+                     table_grad_kernel="corner_grad_step",
+                     table_grad_stochastic_kernel="stochastic_grad_step",
+                     tet_factor_grad_x_kernel="cell_step",
+                     cell_row_grad_x_kernel="cell_f32_step",
+                     cell_pair_grad_x_kernel="cell_bf16pair_step",
+                     segment_sum_kernel=f"{name}_composite"), **(keys or {}))
+    with ExitStack() as stack:
+        for fn, key in keys.items():
+            mod = hs if fn == "segment_sum_kernel" else hg
+            stack.enter_context(capture(mod, fn, captured, key))
         ngp_step_grads(torch, trainer, batch)
     for dtype in ("float32", "bfloat16"):
         compare_step(torch, trainer, kernels, batch, dtype, table_grad)
@@ -1427,8 +1498,84 @@ def compare_step(torch, trainer, kernels, batch, compute_dtype, table_grad):
           f"kernel-path gradients disagree: {errs}")
 
 
+def train_360_slice(torch, kernels, card, views, captured, report,
+                    profile: bool):
+    """Phase 11: the unbounded 360 path (Stage1Config(scene_type="360"):
+    the contracted [-1, 1]^3 aabb, cone stepping from near 0.2 to far
+    100, ~1,554 march slots a ray, no coarse level) at full width on the
+    fixture views (the nerf_360_v2 scenes are not in the repo): 300
+    steps from the 360 loader's 10 rays a step through train_slice, with
+    its gates the falling loss and the eval PSNR at least the views'
+    background alone less TRAIN_360_PSNR_MARGIN (the CPU runs' floor)
+    and plus TRAIN_360_CARD_GAIN (the card's). K2, K3 and the
+    fused K1 must launch, K1 once a step; K4 never: the contracted march
+    looks its slots up in the dense grid (ops/grid.py occupancy_lookup,
+    as JAX's), and the bit table serves only the coarse level of the
+    two-level march, which a cone turns off. Then one step (in
+    train_slice) and one eval view on the kernel path against the plain
+    path; the step's K2, K1 and K3 arguments go to phase 6. Fills
+    report["train_360"] and returns the path's launches."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config
+
+    cfg = Stage1Config(root=tempfile.mkdtemp(prefix="qf_smoke_"),
+                       scene="fixture", scene_type="360", max_steps=300,
+                       log_every=50, ckpt_every=10**9)
+    bg = background_psnr(views)
+    floors = (bg - TRAIN_360_PSNR_MARGIN, bg + TRAIN_360_CARD_GAIN)
+    print(f"360 path: {cfg.render_config()}; the views' background alone "
+          f"{bg:.4f} dB; eval PSNR floors {floors[0]:.4f} dB (the CPU "
+          f"runs') and {floors[1]:.4f} dB (the card's)")
+    out = {}
+    launches, n_steps = train_slice(
+        torch, kernels, card, views, "train_360", cfg,
+        ("hashgrid_encode", "segment_sum", "hashgrid_encode_bwd"),
+        (hg, "table_grad_kernel", hg.table_grad_plain), captured, profile,
+        out=out, init_rays=10,
+        gates=dict(loss_ratio=1.0, psnr=max(floors), occupied=None),
+        keys=dict(encode_kernel="train_360_step",
+                  table_grad_kernel="train_360_grad_step"))
+    trainer = out.pop("trainer")
+    check(launches[hg.ENCODE_BWD_KERNEL.name] == n_steps,
+          f"K1 launched {launches[hg.ENCODE_BWD_KERNEL.name]} times in "
+          f"{n_steps} steps of train_360")
+    path = ("hashgrid_encode", "segment_sum", "hashgrid_encode_bwd")
+    others = {k: n for k, n in launches.items() if k not in path}
+    check(not any(others.values()), f"train_360 launched {others}")
+    # one view on the kernel path against the plain path, the renderer
+    # that evaluate() picks
+    data = views.fetch_eval_view(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb_kernel = trainer.render_view(data)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    before = {k.name: k.launches for k in kernels}
+    with plain_path():
+        rgb_plain = trainer.render_view(data)
+    check({k.name: k.launches for k in kernels} == before,
+          "the plain-path 360 render launched a kernel")
+    diff = float((rgb_kernel - rgb_plain).abs().max())
+    renderer = "windowed" if trainer._use_window_eval() else "one-shot"
+    print(f"360 view 0 ({renderer} renderer, {trainer.rcfg.max_steps} "
+          f"slots a ray), kernel path vs plain path: max_abs_err {diff} "
+          f"(limit 1e-4); {view_s:.4f} s [{card}]")
+    check(diff <= 1e-4, f"kernel-path 360 view disagrees with plain: {diff}")
+    out.pop("losses")
+    report["train_360"] = dict(
+        out, steps=n_steps, slots_per_ray=trainer.rcfg.max_steps,
+        background_psnr=bg, psnr_gain=out["metrics"]["psnr"] - bg,
+        view_max_abs_err=diff, view_s=view_s, renderer=renderer,
+        launches=launches, card=card)
+    del trainer
+    free_device_memory()
+    return launches
+
+
 # kernel-name patterns of the profile's classes, first match wins
 PROFILE_CLASSES = (
+    ("pair segment sum (K1's stream interface, K8)", ("pairs_kernel",)),
+    ("cell row stream (K5's stream entry)", ("cell_row_grad_kernel",)),
     ("cell table gradient (K5-K7)", ("cell_",)),
     ("encode backward (K1 fused)", ("encode_bwd_kernel",)),
     ("encode backward, stochastic (K1's stochastic form)",
@@ -1519,6 +1666,35 @@ def profile_steps(torch, step, card, n_steps=10, label="step"):
 # runs spread 2.1 dB over the three seeds; a mean of 3 narrows it).
 STOCHASTIC_PSNR_MARGIN = 2.5
 
+# phase 11's gate: the 360 path's final eval PSNR at least the PSNR of
+# the same views' background alone (an empty scene) less this margin
+# (dB): the largest shortfall of the CPU runs of both packages
+# (tests/test_torch_stage1_train.py::test_360_quality_on_the_cpu; L8
+# 2^14 samples: both exactly the background's 14.8643 dB; L16 2^16 at
+# seeds 42-44: JAX +0.004 / -3.21 / +0.21, the port -2.05 / -3.59 /
+# -2.39 dB) plus ~1 dB for the runs' spread. 300 steps leave the CPU
+# models at the start of the fit, where haze costs PSNR against the
+# empty scene; the gate catches a collapse
+TRAIN_360_PSNR_MARGIN = 4.6
+# and at least the background plus this gain (dB), set from the card:
+# five smoke runs read 21.32 to 26.88 dB against the background's 14.80
+# (+6.52 at the least; NVIDIA H100 80GB HBM3, 700 W), and the gate
+# leaves 2.5 dB under the smallest for the runs' spread, so a 360 path
+# that lost most of its fit fails
+TRAIN_360_CARD_GAIN = 4.0
+
+
+def background_psnr(views) -> float:
+    """The mean PSNR over `views` (the eval interface: len and
+    fetch_eval_view) of each view's background colour alone."""
+    psnrs = []
+    for i in range(len(views)):
+        data = views.fetch_eval_view(i)
+        px = np.asarray(data["pixels"], np.float64).reshape(-1, 3)
+        bkgd = np.asarray(data["color_bkgd"], np.float64).reshape(1, 3)
+        psnrs.append(-10.0 * np.log10(((px - bkgd) ** 2).mean()))
+    return float(np.mean(psnrs))
+
 # phase 7's quality gates, set from a CPU run of both packages at
 # tests/test_pipeline_full.py's settings (tests/test_torch_stage2.py
 # test_stage2_quality_gates_on_the_cpu: stage 1 220 steps, stage 2 120
@@ -1575,49 +1751,70 @@ def sphere_shell_ratios(grads_valid, field_scale=0.5):
     return float(shell / g[r > 0.3].mean()), float(shell / g[r < 0.1].mean())
 
 
-def compare_field_step(torch, trainer, kernels, batch):
+def compare_field_step(torch, trainer, kernels, batch, table_grads=None):
     """One stage-2 step, kernel path against plain path (every kernel
     patched with its plain version), f32 throughout the field: the loss
-    within 1e-5 relative; the K1 output of the kernel-path step within
-    1e-5 * max |want| of the plain version summed in float64 on the
+    within 1e-5 relative; the output of each table-gradient kernel of
+    the kernel-path step (`table_grads`: (module, function name, plain
+    version) each called once a step; the fused K1 by default) within
+    1e-5 * max |want| of its plain version summed in float64 on the
     inputs it was given (the atomics add in a varying order); every
     field gradient, table and decoder, within 1e-4 of its max of the
     plain path's."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
 
-    calls = []
-    kernel = hg.table_grad_kernel
+    table_grads = table_grads or [(hg, "table_grad_kernel",
+                                   hg.table_grad_plain)]
+    calls = {name: [] for _, name, _ in table_grads}
 
-    def recording(*args):
-        out = kernel(*args)
-        calls.append((args, out))
-        return out
+    def recording(name, kernel):
+        def fn(*args):
+            out = kernel(*args)
+            calls[name].append((args, out))
+            return out
+        return fn
 
-    with mock.patch.object(hg, "table_grad_kernel", recording):
+    with ExitStack() as stack:
+        for mod, name, _ in table_grads:
+            stack.enter_context(mock.patch.object(
+                mod, name, recording(name, getattr(mod, name))))
         loss_k, grads_k = field_step_grads(torch, trainer, batch)
     before = {k.name: k.launches for k in kernels}
     with plain_path():
         loss_p, grads_p = field_step_grads(torch, trainer, batch)
     check({k.name: k.launches for k in kernels} == before,
           "the plain-path stage-2 step launched a kernel")
-    check(len(calls) == 1, f"{len(calls)} calls of K1 in one stage-2 step")
-    args, got = calls[0]
-    want = hg.table_grad_plain(*as_f64(args))
-    k1_err = float((got - want).abs().max() / want.abs().max())
-    del want, got, calls
+    table_errs = {}
+    for _, name, plain in table_grads:
+        check(len(calls[name]) == 1,
+              f"{len(calls[name])} calls of {name} in one stage-2 step")
+        args, got = calls[name][0]
+        want = plain(*as_f64(args))
+        table_errs[name] = float((got - want).abs().max()
+                                 / want.abs().max())
+        del want, got
+    del calls
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     errs = [float((a - b).abs().max() / b.abs().max()) if b.abs().max() > 0
             else float(a.abs().max()) for a, b in zip(grads_k, grads_p)]
     print(f"one stage-2 step, kernel path vs plain path: loss {loss_k} vs "
-          f"{loss_p} (relative {loss_rel}, limit 1e-5); K1 output vs "
-          f"float64 plain sum, same inputs: {k1_err} of max (limit 1e-5); "
-          f"gradient error / max |grad| per leaf (table first, the output "
-          f"bias's gradient is 0) {errs} (limit 1e-4)")
+          f"{loss_p} (relative {loss_rel}, limit 1e-5); table-gradient "
+          f"outputs vs float64 plain sums, same inputs: {table_errs} of max "
+          f"(limit 1e-5); gradient error / max |grad| per leaf (table "
+          f"first, the output bias's gradient is 0) {errs} (limit 1e-4)")
     check(loss_rel <= 1e-5, f"kernel-path stage-2 loss disagrees: {loss_rel}")
-    check(k1_err <= 1e-5, f"K1 in the stage-2 step disagrees: {k1_err}")
+    check(all(e <= 1e-5 for e in table_errs.values()),
+          f"a table gradient in the stage-2 step disagrees: {table_errs}")
     check(all(e <= 1e-4 for e in errs),
           f"kernel-path stage-2 gradients disagree: {errs}")
-    return dict(loss_rel=loss_rel, k1_rel=k1_err, grad_rel=errs)
+    return dict(loss_rel=loss_rel, table_grad_rel=table_errs, grad_rel=errs)
+
+
+# run_nerfsynthetic_field.sh's flags: --num_lobes 0 --log2_hashmap_size 19
+# --field_log2_hashmap_size 30 --batch_size 18 --scale 1.5
+STAGE2_FLAGS = dict(num_lobes=0, log2_hashmap_size=19,
+                    field_log2_hashmap_size=30, batch_size_log2=18,
+                    scale=1.5)
 
 
 def field_slice(torch, kernels, card, views, captured, report,
@@ -1664,14 +1861,11 @@ def field_slice(torch, kernels, card, views, captured, report,
           f"occupied cells {feeder_occ:.4f}; saved {ckpt}")
     del t1
 
-    # stage 2: --num_lobes 0 --log2_hashmap_size 19
-    # --field_log2_hashmap_size 30 --batch_size 18 --scale 1.5, 300 of its
-    # 25,000 steps, a 256^3 export (the CLI's default is 1024^3)
+    # stage 2: 300 of its 25,000 steps, a 256^3 export (the CLI's
+    # default is 1024^3)
     cfg = Stage2Config(root=root, scene="fixture", ckpt_path=ckpt,
-                       num_lobes=0, log2_hashmap_size=19,
-                       field_log2_hashmap_size=30, batch_size_log2=18,
-                       scale=1.5, grid_export_size=256, max_steps=300,
-                       log_every=50, ckpt_every=10**9)
+                       grid_export_size=256, max_steps=300, log_every=50,
+                       ckpt_every=10**9, **STAGE2_FLAGS)
     views.update_num_rays(cfg.init_batch_size)
     trainer = Stage2Trainer(cfg, train_dataset=views)
     fgrid = trainer.field_cfg.hashgrid
@@ -1829,8 +2023,178 @@ def field_slice(torch, kernels, card, views, captured, report,
           f" ms a step, bound {out['adam_bound_ms']:.4f} ms [{card}]")
     report["train_field"] = out
     del trainer, leaves
-    torch.cuda.empty_cache()
+    free_device_memory()
     return launches, root, ckpt, big if export_size else None
+
+
+@contextmanager
+def in_situ(mod, name, times):
+    """Patch mod.name so that each call is timed on the device where the
+    path makes it (CUDA events around the wrapper, its output's zeroing
+    included); the ms land in `times` when the block ends."""
+    import torch
+
+    real, events = getattr(mod, name), []
+
+    def timed_call(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    with mock.patch.object(mod, name, timed_call):
+        yield
+    torch.cuda.synchronize()
+    times.extend(a.elapsed_time(b) for a, b in events)
+
+
+# phase 13's depth: steps of the corner field with back_prop=True, and of
+# the cell field beside it (whose loss rises over its first ~10 steps
+# before it falls, on the CPU as on the card)
+BACK_PROP_STEPS = 100
+
+
+def field_back_prop_slice(torch, kernels, card, views, captured, report,
+                          ckpt, cell_ckpt, profile: bool):
+    """Phase 13 ("field_back_prop"): back_prop=True of the quadrature
+    field, which differentiates the encode's position gradient again:
+    phase 7's Stage2Trainer (run_nerfsynthetic_field.sh's field, 317 MB
+    table, 2^18 samples) from phase 7's feeder with field_cfg set to
+    back_prop=True, BACK_PROP_STEPS steps: the fused K1 (the first-order
+    table gradient) and K1's stream interface (the table gradient of the
+    position gradient) once a step each, K2, K4 and K3; and beside it a
+    cell-layout tet L16 F2 field (the deformation field's log2_T 24,
+    --layout cell --grad_payload bf16factor) from phase 5's cell
+    checkpoint, BACK_PROP_STEPS steps: K5's fused entry (the first
+    order, f32 rows) and K5's stream entry once a step each, K4 and K3.
+    Each: finite losses that fall, ms/step (host clock around each step,
+    the second half), the stream entry's time in situ (CUDA events
+    around its wrapper in every step), one step on the kernel path
+    against the plain path (compare_field_step, both table gradients
+    against their float64 plain sums), and the stream entry's arguments
+    of that step for phase 6. Fills report["field_back_prop"]; returns
+    (corner launches, cell launches)."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+    from quadraturefields_tpu_torch.train.stage2_field import (
+        Stage2Config,
+        Stage2Trainer,
+    )
+
+    def run(label, cfg, n_steps, first, stream, stream_fn, key):
+        """n_steps of `cfg` with back_prop=True; `first` and `stream`
+        (the first-order and the second-order table gradients' kernels)
+        must launch once a step, K4 and K3 at all, no other table
+        gradient."""
+        views.update_num_rays(cfg.init_batch_size)
+        trainer = Stage2Trainer(cfg, train_dataset=views)
+        trainer.field_cfg = dataclasses.replace(trainer.field_cfg,
+                                                back_prop=True)
+        fgrid = trainer.field_cfg.hashgrid
+        record, stream_ms = [], []
+
+        def steps():
+            for _ in range(n_steps):
+                t = time.perf_counter()
+                loss, nv, _ = trainer.train_one_step()
+                loss = float(loss)  # waits for the step
+                record.append((time.perf_counter() - t, loss))
+
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with in_situ(hs, stream_fn, stream_ms):
+            _, launches = count_launches(kernels, steps)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"field_back_prop ({label}): {trainer.field_cfg}; table "
+              f"{fgrid.total_entries} rows x {fgrid.row_width} f32 "
+              f"({fgrid.total_entries * fgrid.row_width * 4 / 1e6:.1f} MB); "
+              f"{n_steps} steps, kernel launches {launches}; batch now "
+              f"{views.num_rays} rays; device memory held before the steps "
+              f"{held / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB [{card}]")
+        path = (first.name, stream.name, "occ_bits", "segment_sum")
+        for name in path[:2]:
+            check(launches[name] == n_steps,
+                  f"{name} launched {launches[name]} times in {n_steps} "
+                  f"back_prop steps ({label})")
+        for name in path[2:]:
+            check(launches[name] > 0, f"{label} never launched {name}")
+        others = {k: n for k, n in launches.items()
+                  if k not in path and k != hg.ENCODE_KERNEL.name}
+        check(not any(others.values()), f"{label} launched {others}")
+        losses = [r[1] for r in record]
+        check(all(np.isfinite(losses)), f"non-finite loss ({label})")
+        head, tail = np.mean(losses[:20]), np.mean(losses[-20:])
+        print(f"field_back_prop ({label}) loss: mean of the first 20 steps "
+              f"{head:.6f}, of the last 20 {tail:.6f} (ratio "
+              f"{tail / head:.4f}, must be < 1)")
+        check(tail < head, f"the back_prop loss did not fall ({label})")
+        half = record[n_steps // 2:]
+        ms_step = sum(r[0] for r in half) / len(half) * 1e3
+        in_situ_ms = float(np.mean(stream_ms[n_steps // 2:]))
+        print(f"field_back_prop ({label}), steps {n_steps // 2}-{n_steps}: "
+              f"{ms_step:.3f} ms/step; {stream.name} in situ (its wrapper, "
+              f"the zeroing included) {in_situ_ms:.4f} ms a step [{card}]")
+
+        data = views.fetch_train_batch()
+        dev = trainer.device
+        batch = [torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                 for a in (data["rays"].origins, data["rays"].viewdirs,
+                           data["pixels"], data["color_bkgd"])]
+        batch.append(torch.rand((batch[0].shape[0],),
+                                generator=trainer.generator, device=dev))
+        with capture(hs, stream_fn, captured, key):
+            field_step_grads(torch, trainer, batch)
+        plain = {"table_grad_kernel": hg.table_grad_plain,
+                 "cell_row_grad_x_kernel": hg.cell_row_grad_x_plain,
+                 "table_grad_pairs_kernel": hs.table_grad_pairs_plain,
+                 "row_grad_kernel": hs.row_grad_plain}
+        first_fn = ("table_grad_kernel" if first is hg.ENCODE_BWD_KERNEL
+                    else "cell_row_grad_x_kernel")
+        compare = compare_field_step(
+            torch, trainer, kernels, batch,
+            [(hg, first_fn, plain[first_fn]),
+             (hs, stream_fn, plain[stream_fn])])
+        if profile:
+            profile_steps(torch, trainer.train_one_step, card,
+                          label=f"stage-2 step with back_prop ({label})")
+        out = dict(steps=n_steps, ms_per_step=ms_step,
+                   stream_in_situ_ms=in_situ_ms, rays=views.num_rays,
+                   peak_bytes=peak, loss_first=head,
+                   loss_last=tail, table_rows=fgrid.total_entries,
+                   table_mb=fgrid.total_entries * fgrid.row_width * 4 / 1e6,
+                   launches=launches, compare=compare, card=card)
+        del trainer
+        free_device_memory()
+        return out, launches
+
+    root = tempfile.mkdtemp(prefix="qf_smoke_")  # apart from phase 7's
+    corner, corner_launches = run(
+        "corner", Stage2Config(root=root, scene="fixture", ckpt_path=ckpt,
+                               max_steps=BACK_PROP_STEPS, ckpt_every=10**9,
+                               **STAGE2_FLAGS),
+        BACK_PROP_STEPS, hg.ENCODE_BWD_KERNEL, hs.TABLE_GRAD_PAIRS_KERNEL,
+        "table_grad_pairs_kernel", "back_prop_pairs")
+    # the cell field: phase 5's NGP (run_nerfsynthetic_tpu_fast.sh's
+    # --layout cell --grad_payload bf16factor --n_levels 8 --n_features 4
+    # --num_lobes 0 --num_layers 2 --scale 1.5), the field at log2_T 24
+    cell, cell_launches = run(
+        "cell", Stage2Config(
+            root=root, scene="fixture", ckpt_path=cell_ckpt, layout="cell",
+            grad_payload="bf16factor", n_levels=8, n_features=4,
+            num_lobes=0, num_layers=2, log2_hashmap_size=19,
+            field_log2_hashmap_size=24, batch_size_log2=18, scale=1.5,
+            max_steps=BACK_PROP_STEPS, ckpt_every=10**9),
+        BACK_PROP_STEPS, hg.CELL_ROW_GRAD_X_KERNEL,
+        hs.CELL_ROW_GRAD_KERNEL, "row_grad_kernel", "back_prop_cell_rows")
+    phase7 = report["train_field"]["ms_per_step"]
+    print(f"field_back_prop: corner {corner['ms_per_step']:.3f} ms/step "
+          f"beside phase 7's {phase7:.3f} (back_prop=False) [{card}]")
+    report["field_back_prop"] = dict(corner=corner, cell=cell,
+                                     phase7_ms_per_step=phase7)
+    return corner_launches, cell_launches
 
 
 def stage3_slice(torch, card, field_dir, label):
@@ -1945,11 +2309,23 @@ def finetune_step_grads(torch, trainer, inputs, freeze):
         trainer.params, *inputs, freeze)[0])
 
 
+# the fused table gradients of the stage-4 paths, with their plain
+# versions: K1 (corner), K5, K7 and K6 (cell), as their wrappers in
+# ops/hashgrid.py are named
+FUSED_TABLE_GRADS = {
+    "table_grad_kernel": "table_grad_plain",
+    "cell_row_grad_x_kernel": "cell_row_grad_x_plain",
+    "tet_factor_grad_x_kernel": "tet_factor_grad_x_plain",
+    "cell_pair_grad_x_kernel": "cell_pair_grad_x_plain",
+}
+
+
 def compare_finetune_step(torch, trainer, kernels, inputs, freeze):
     """One stage-4 step, kernel path against plain path, held to
-    compare_step's rules: the loss within 1e-5 relative; each K1 output
-    of the kernel-path step (the field's and, joint, the NGP's at the
-    hits and at the twin's samples) within
+    compare_step's rules: the loss within 1e-5 relative; each fused
+    table gradient's output in the kernel-path step (K1, or in the cell
+    layout K5, K7 or K6: the field's and, joint, the NGP's at the hits
+    and at the twin's samples) within
     1e-5 * max |want| of the plain version summed in float64 on its own
     inputs; the rf's gradients (bf16 MLPs) within 8 times the plain
     path's own spread over three reruns, and at least 2^-8; the field's
@@ -1959,14 +2335,19 @@ def compare_finetune_step(torch, trainer, kernels, inputs, freeze):
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
 
-    calls, kernel = [], hg.table_grad_kernel
+    calls = []
 
-    def recording(*args):
-        out = kernel(*args)
-        calls.append((args, out))
-        return out
+    def recording(name, kernel):
+        def fn(*args):
+            out = kernel(*args)
+            calls.append((name, args, out))
+            return out
+        return fn
 
-    with mock.patch.object(hg, "table_grad_kernel", recording):
+    with ExitStack() as stack:
+        for name in FUSED_TABLE_GRADS:
+            stack.enter_context(mock.patch.object(
+                hg, name, recording(name, getattr(hg, name))))
         loss_k, grads_k = finetune_step_grads(torch, trainer, inputs, freeze)
     before = {k.name: k.launches for k in kernels}
     with plain_path():
@@ -1976,13 +2357,14 @@ def compare_finetune_step(torch, trainer, kernels, inputs, freeze):
     check({k.name: k.launches for k in kernels} == before,
           "the plain-path stage-4 step launched a kernel")
     check(len(calls) == (1 if freeze else 3),
-          f"{len(calls)} calls of K1 in one {'frozen' if freeze else 'joint'}"
-          f" stage-4 step")
+          f"{len(calls)} table-gradient calls in one "
+          f"{'frozen' if freeze else 'joint'} stage-4 step")
     k1_errs = []
-    for args, got in calls:
-        want = hg.table_grad_plain(*as_f64(args))
+    for name, args, got in calls:
+        want = getattr(hg, FUSED_TABLE_GRADS[name])(*as_f64(args))
         k1_errs.append(float((got - want).abs().max() / want.abs().max()))
         del want
+    routes = [name for name, _, _ in calls]
     del calls
 
     def rel(a, b):
@@ -2002,24 +2384,27 @@ def compare_finetune_step(torch, trainer, kernels, inputs, freeze):
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     label = "frozen" if freeze else "joint"
     print(f"one {label} stage-4 step, kernel path vs plain path: loss "
-          f"{loss_k} vs {loss_p} (relative {loss_rel}, limit 1e-5); K1 "
-          f"outputs vs float64 plain sums, same inputs: {k1_errs} of max "
+          f"{loss_k} vs {loss_p} (relative {loss_rel}, limit 1e-5); table "
+          f"gradients {routes} vs float64 plain sums, same inputs: "
+          f"{k1_errs} of max "
           f"(limit 1e-5); gradient error / max |grad| per leaf (rf first) "
           f"{errs} (limits {limits}); plain path vs itself, largest of "
           f"three reruns per leaf {spreads}")
     check(loss_rel <= 1e-5, f"kernel-path stage-4 loss disagrees: {loss_rel}")
     check(all(e <= 1e-5 for e in k1_errs),
-          f"K1 in the stage-4 step disagrees: {k1_errs}")
+          f"a table gradient in the stage-4 step disagrees: {k1_errs}")
     check(all(e <= lim for e, lim in zip(errs, limits)),
           f"kernel-path stage-4 gradients disagree: {errs}")
-    return dict(loss_rel=loss_rel, k1_rel=k1_errs, grad_rel=errs,
-                rf_limit=rf_limit, field_limit=field_limit)
+    return dict(loss_rel=loss_rel, table_grads=routes,
+                table_grad_rel=k1_errs, grad_rel=errs, rf_limit=rf_limit,
+                field_limit=field_limit)
 
 
 def finetune_slice(torch, kernels, card, views, captured, report, root,
-                   ckpt, big_export, profile: bool):
-    """Phase 8: stage 3 on phase 7's 256^3 export (and on its 1024^3
-    export with --export 1024), then stage 4 at
+                   ckpt, big_export, profile: bool, cell=None):
+    """Phase 8 (and phase 12 with `cell`, below): stage 3 on phase 7's
+    256^3 export (and on its 1024^3 export with --export 1024), then
+    stage 4 at
     run_nerfsynthetic_finetune.sh's flags from phase 7's feeder
     checkpoint and the stage-3 smp_mesh.ply: Stage4Trainer.train for
     400 steps (300 frozen), a mesh update at step 200 between two
@@ -2035,7 +2420,15 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     the prefetcher; then a frozen and a joint step on the kernel path
     against the plain path, and (for phase 6) one step's field encode,
     field table gradient, packed composite and the twin's composite.
-    Fills report["train_finetune"] and returns the path's launches."""
+    Fills report["train_finetune"] and returns the path's launches.
+
+    Phase 12 ("train_finetune_cell"): `cell` (Stage4Config fields: the
+    cell layout, its payload, levels and features) on phase 8's
+    smp_mesh.ply and `ckpt`, phase 5's cell checkpoint, with no stage 3:
+    the same steps, gates and comparisons, the corner K1 never; K5's
+    fused entry (the route JAX's routing picks for both tables at these
+    sizes) once a frozen and three times a joint step, K7, K6 and the
+    stream entries never. Fills report["train_finetune_cell"]."""
     from quadraturefields_tpu_torch.geometry.intersect import HitPrefetcher
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.render import quadrature, renderer
@@ -2046,7 +2439,10 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     )
 
     field_dir = os.path.join(root, "results", "fixture", "field")
-    out = {"stage3": stage3_slice(torch, card, field_dir, "256^3 export")}
+    name = "train_finetune_cell" if cell else "train_finetune"
+    out = {}
+    if not cell:
+        out["stage3"] = stage3_slice(torch, card, field_dir, "256^3 export")
     if big_export:
         out["stage3_1024"] = stage3_slice(torch, card, big_export,
                                           "1024^3 export")
@@ -2058,23 +2454,34 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     # 10,000 steps (300 frozen; steps 0-399, max_steps 399, as train()
     # runs max_steps + 1), a mesh update every 200 steps (2000)
     cfg = Stage4Config(
-        root=root, scene="fixture", ckpt_path=ckpt,
+        # phase 12 writes its checkpoint and meshes apart from phase 8's,
+        # which phase 9 reads
+        root=tempfile.mkdtemp(prefix="qf_smoke_") if cell else root,
+        scene="fixture", ckpt_path=ckpt,
         mesh_path=os.path.join(field_dir, "smp_mesh.ply"), scaling=0.0434,
         up_sample=2, voxel_size=150, max_hits=25, num_lobes=0, num_layers=2,
         log2_hashmap_size=19, batch_size_log2=17, scale=1.5, max_steps=399,
         mesh_update_every=200, eval_views=2, log_every=50,
-        ckpt_every=10**9)
+        ckpt_every=10**9, **(cell or {}))
     up = views.upsampled(cfg.up_sample, cfg.init_batch_size)
     trainer = Stage4Trainer(cfg, train_dataset=up, test_dataset=up)
     fgrid = trainer.field_cfg.hashgrid
     e = fgrid.total_entries
-    check(e == 101_626_144, f"the deformation field table has {e} rows")
-    print(f"deformation field: {trainer.field_cfg}; table {e} rows x "
-          f"{fgrid.n_features} f32 ({e * fgrid.n_features * 4 / 1e6:.1f} "
-          f"MB); mesh {trainer.mesh_intersect.n_faces} faces; views "
-          f"{len(up)} x {up.HEIGHT}x{up.WIDTH} rays on {views.res}^2 pixels")
+    check(e == (18_363_552 if cell else 101_626_144),
+          f"the deformation field table has {e} rows")
+    print(f"{name}: deformation field {trainer.field_cfg}; table {e} rows "
+          f"x {fgrid.row_width} f32 ({e * fgrid.row_width * 4 / 1e6:.1f} "
+          f"MB on the card); NGP {trainer.ngp_cfg}; mesh "
+          f"{trainer.mesh_intersect.n_faces} faces; views {len(up)} x "
+          f"{up.HEIGHT}x{up.WIDTH} rays on {views.res}^2 pixels")
 
-    k1 = hg.ENCODE_BWD_KERNEL
+    # the fused table gradient of the path: K1, or in the cell layout
+    # K5, where JAX's _cell_grad_route sends both tables at these sizes:
+    # each outweighs its stream (3E > n L: the field's 18.4M rows at L16
+    # and the rf's 0.44M at L8 against ~80k hits and the twin's samples a
+    # step), so "auto" runs "exact", which sums f32 rows; K7 and K6 never
+    # launch
+    grads = [hg.CELL_ROW_GRAD_X_KERNEL if cell else hg.ENCODE_BWD_KERNEL]
     record, evals, waits = [], [], []
     one_step, evaluate = trainer.train_one_step, trainer.evaluate
     real_next = trainer.prefetcher.next
@@ -2086,12 +2493,13 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
         return item
 
     def timed_step():
-        rays, k1_before = up.num_rays, k1.launches
+        rays = up.num_rays
+        before = sum(k.launches for k in grads)
         t = time.perf_counter()
         loss, nh, mse = one_step()
         loss = float(loss)  # waits for the step
         record.append((time.perf_counter() - t, rays, nh, loss,
-                       k1.launches - k1_before))
+                       sum(k.launches for k in grads) - before))
         return loss, nh, mse
 
     def recorded_evaluate(*args, **kw):
@@ -2107,23 +2515,32 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     train_s = time.perf_counter() - t0
     trainer.train_one_step, trainer.evaluate = one_step, evaluate
     n_steps = len(record)
-    print(f"train_finetune: {n_steps} steps + 2 evaluations + 2 mesh "
-          f"updates + checkpoint in {train_s:.2f} s; kernel launches "
-          f"{launches}")
-    path_kernels = (hg.ENCODE_KERNEL.name, "occ_bits", "segment_sum",
-                    k1.name)
-    for name in path_kernels:
-        check(launches[name] > 0, f"train_finetune never launched {name}")
+    print(f"{name}: {n_steps} steps + 2 evaluations + 2 mesh updates + "
+          f"checkpoint in {train_s:.2f} s; kernel launches {launches}")
+    if cell:
+        # the cell NGP and the cell field encode in plain PyTorch: K2
+        # only where a corner model runs, reported
+        path_kernels = ("occ_bits", "segment_sum", grads[0].name)
+        print(f"{name}: K2 launched {launches[hg.ENCODE_KERNEL.name]} "
+              f"times (no corner model on this path)")
+        path_kernels += (hg.ENCODE_KERNEL.name,)
+    else:
+        path_kernels = (hg.ENCODE_KERNEL.name, "occ_bits", "segment_sum",
+                        grads[0].name)
+    for kernel_name in path_kernels[:3]:
+        check(launches[kernel_name] > 0,
+              f"{name} never launched {kernel_name}")
     others = {k: n for k, n in launches.items() if k not in path_kernels}
-    check(not any(others.values()), f"train_finetune launched {others}")
+    check(not any(others.values()), f"{name} launched {others}")
     frozen = cfg.freeze_rf_steps
     k1_frozen = [r[4] for r in record[:frozen]]
     k1_joint = [r[4] for r in record[frozen:]]
-    print(f"K1 launches a step: frozen {sorted(set(k1_frozen))} over "
-          f"{len(k1_frozen)} steps, joint {sorted(set(k1_joint))} over "
-          f"{len(k1_joint)} steps")
+    print(f"table-gradient launches a step ({', '.join(k.name for k in grads)}"
+          f"): frozen {sorted(set(k1_frozen))} over {len(k1_frozen)} steps, "
+          f"joint {sorted(set(k1_joint))} over {len(k1_joint)} steps")
     check(set(k1_frozen) == {1} and set(k1_joint) == {3},
-          "K1 did not launch once a frozen and three times a joint step")
+          "the table gradient did not launch once a frozen and three times "
+          "a joint step")
 
     losses = [r[3] for r in record]
     check(all(np.isfinite(losses)), "non-finite stage-4 loss")
@@ -2169,12 +2586,13 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
         joint=window(frozen, n_steps), loss_first20=first, loss_last20=last,
         eval_before_update=evals[0], eval_after_update=evals[1],
         eval_final=final, eval_final_native=final_native, psnr_gain=gain,
-        launches=launches,
-        k1_per_step={"frozen": k1_frozen[0], "joint": k1_joint[0]},
+        launches=launches, table_rows=e,
+        table_mb=e * fgrid.row_width * 4 / 1e6,
+        table_grads_per_step={"frozen": k1_frozen[0], "joint": k1_joint[0]},
         train_s=train_s, card=card)
     for label in ("frozen", "joint"):
         w = out[label]
-        print(f"stage-4 training (train_finetune), {label} steps: "
+        print(f"stage-4 training ({name}), {label} steps: "
               f"{w['ms_per_step']:.3f} ms/step, "
               f"{w['rendered_hits_per_s']:.1f} rendered hits/s, "
               f"{w['rays_per_step']:.1f} rays and {w['hits_per_step']:.1f}"
@@ -2186,7 +2604,7 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     # composite and its volumetric twin's composite go to phase 6
     for freeze in (True, False):
         inputs = finetune_step_inputs(torch, trainer, up)
-        if not freeze:
+        if not freeze and not cell:
             with capture(hg, "encode_kernel", captured, "finetune_step",
                          when=lambda table, x, c: c == fgrid), \
                     capture(hg, "table_grad_kernel", captured,
@@ -2207,7 +2625,7 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
             packed_cap=cfg.pack_cap)
         try:
             profile_steps(torch, trainer.train_one_step, card,
-                          label="stage-4 joint step (train_finetune)")
+                          label=f"stage-4 joint step ({name})")
         finally:
             trainer.prefetcher.stop()
     leaves = _leaves(trainer.params)
@@ -2219,9 +2637,9 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     print(f"Adam over the rf's and the field's {n_params} parameters: "
           f"{out['adam_ms']:.4f} ms a step, bound "
           f"{out['adam_bound_ms']:.4f} ms [{card}]")
-    report["train_finetune"] = out
+    report[name] = out
     del trainer, leaves
-    torch.cuda.empty_cache()
+    free_device_memory()
     return launches
 
 
@@ -2499,7 +2917,7 @@ def fit_sg_slice(torch, kernels, card, views, captured, report, root,
           f"{out['adam_bound_ms']:.4f} ms [{card}]")
     report["train_fit_sg"] = out
     del trainer, leaves
-    torch.cuda.empty_cache()
+    free_device_memory()
     return launches, ckpt
 
 
@@ -2861,7 +3279,7 @@ def bake_slice(torch, kernels, card, views, captured, report, root,
           f"{len(views)} views of {views.HEIGHT}^2 [{card}]")
     report["bake"] = out
     del renderer
-    torch.cuda.empty_cache()
+    free_device_memory()
     return launches
 
 
@@ -2948,7 +3366,7 @@ def paired_run(views, mode: str, stream: int = 0) -> float:
         trainer.train_one_step()
     psnr = trainer.evaluate()["psnr"]
     del trainer
-    torch.cuda.empty_cache()
+    free_device_memory()
     return psnr
 
 
@@ -3141,7 +3559,7 @@ def stochastic_slice(torch, kernels, card, views, captured, report,
         nerf_mlps=mlps, card=card)
     del trainer
     out.clear()
-    torch.cuda.empty_cache()
+    free_device_memory()
     return launches
 
 
@@ -3169,7 +3587,9 @@ def time_captured(torch, report, captured, card, baseline=None):
                 "stochastic_grad_step", "cell_step",
                 "cell_f32_step", "cell_bf16pair_step", "field_step",
                 "field_grad_step", "finetune_step", "finetune_grad_step",
-                "fit_sg_step", "fit_sg_grad_step", "bake_chunk"):
+                "fit_sg_step", "fit_sg_grad_step", "bake_chunk",
+                "train_360_step", "train_360_grad_step",
+                "back_prop_pairs", "back_prop_cell_rows"):
         check(key in captured, f"no kernel call captured in {key}")
     table, x, cfg = captured["eval_chunk"]
     inputs = {"eval_chunk": (table, x, cfg),
@@ -3179,7 +3599,8 @@ def time_captured(torch, report, captured, card, baseline=None):
               "field_step": captured["field_step"],
               "finetune_step": captured["finetune_step"],
               "fit_sg_step": captured["fit_sg_step"],
-              "bake_chunk": captured["bake_chunk"]}
+              "bake_chunk": captured["bake_chunk"],
+              "train_360_step": captured["train_360_step"]}
     enc = report["hashgrid_encode"]
     for path, (table, x, path_cfg) in inputs.items():
         distinct = int(torch.unique(x, dim=0).shape[0])
@@ -3241,6 +3662,24 @@ def time_captured(torch, report, captured, card, baseline=None):
             f"table grad (K1 fused) {interp} on one corner step's x and g",
             hg.table_grad_kernel, hg.table_grad_plain, x, g, cfg,
             cfg.total_entries * cfg.n_features * 4, cfg.corners)}
+    # K1 on the 360 step's contracted positions and cotangent
+    x, g, cfg = captured["train_360_grad_step"]
+    k1["captured"]["train_360_step"] = table_grad(
+        "table grad (K1 fused) tet on one 360 step's x and g",
+        hg.table_grad_kernel, hg.table_grad_plain, x, g, cfg,
+        cfg.total_entries * cfg.n_features * 4, cfg.corners)
+    # the stream entries on back_prop=True's second-order streams
+    report["table_grad_pairs"]["captured"] = {
+        "field_back_prop": stream_entry_case(
+            torch, "K1's stream interface on a back_prop stage-2 step's "
+            "second-order stream", hs.table_grad_pairs_kernel,
+            hs.table_grad_pairs_plain, captured.pop("back_prop_pairs"),
+            card)}
+    report["cell_row_grad"]["captured"] = {
+        "field_back_prop_cell": stream_entry_case(
+            torch, "K5's stream entry on a back_prop cell stage-2 step's "
+            "second-order stream", hs.row_grad_kernel, hs.row_grad_plain,
+            captured.pop("back_prop_cell_rows"), card)}
     # K1's stochastic form on the same corner step (phase 4's x and g),
     # beside the exact K1 above, and on phase 10's own step
     ks = report["hashgrid_encode_bwd_stochastic"]
@@ -3284,8 +3723,7 @@ def time_captured(torch, report, captured, card, baseline=None):
                              v0, v1, path_cfg.total_entries, baseline)
     report["table_grad_values"]["captured"] = {
         "train_step": pairs.pop("values")}
-    report["table_grad_values"]["stream"]["captured"] = {
-        "train_step": pairs}
+    report["table_grad_pairs"]["captured"]["train_step"] = pairs
     del idx, v0, v1
 
     x, g, cfg = captured["cell_step"]
@@ -3326,6 +3764,40 @@ def time_captured(torch, report, captured, card, baseline=None):
         cfg.total_entries * cfg.n_features * 4, cfg.corners)
     del x, g
 
+
+
+def stream_entry_case(torch, label, kernel, plain, args, card):
+    """A table gradient's stream entry on a captured stream: K1's
+    interface (idx, v0, v1, E) or K5's (idx, vals [M, RW], E). Its
+    output against the plain version summed in float64 (limit 1e-5 of
+    max), its time, its plain version's, one index_add_ of the same
+    stream (the library yardstick) and the bound: the stream and the
+    output once, an add a nonzero value."""
+    idx, *vals, e = args
+    vals = vals[0] if len(vals) == 1 else torch.stack(vals, dim=1)
+    m, rw = vals.shape
+    live = int((vals != 0).sum())
+    got = kernel(*args)
+    want = plain(*as_f64(args))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    del got, want
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+    acc = torch.zeros((e, rw), device=vals.device)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, vals))
+    del acc
+    b = bound(m * (idx.element_size() + rw * 4) + e * rw * 4, live)
+    print(f"{label}: {m} contributions of {rw} values ({live} nonzero) "
+          f"into {e} rows: max_abs_err {err}, relative {rel} (limit 1e-5); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}) [{card}]")
+    check(rel <= 1e-5, f"{label} disagrees with float64: {rel}")
+    return dict(contributions=m, nonzero_values=live, max_abs_err=err,
+                relative=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **b)
 
 
 def time_finetune_captured(torch, report, captured, card, table_grad):
@@ -3382,6 +3854,8 @@ def time_segment_sums(torch, report, captured, card, baseline=None):
                  "the busiest baked-eval chunk's composite"),
         "bake_frame": ("frame_composite",
                        "an 800 x 800 baked frame's composite"),
+        "train_360": ("train_360_composite",
+                      "a 360 step's composite"),
     }
     out = report["segment_sum"]["captured"] = {}
     for path, (key, label) in paths.items():
@@ -3418,20 +3892,19 @@ def main() -> int:
     profile = "--profile" in args
     baseline = (Baseline(args[args.index("--baseline") + 1])
                 if "--baseline" in args else None)
-    # the nine kernels of the JSON line (K1 in its exact and its
-    # stochastic form, K5, K6 and K7 their fused entries, K8 its
-    # one-launch interface); their stream entries are
-    # counted too (K8's: K1's stream interface on K8's kernel), and must
+    # the eleven kernels of the JSON line (K1 in its exact and its
+    # stochastic form and its stream interface, K5 its fused and its
+    # stream entry, K6 and K7 their fused entries, K8 its one-launch
+    # interface); K6's and K7's stream entries are counted too, and must
     # stay off the paths
     kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
                hg.ENCODE_BWD_KERNEL, hg.ENCODE_BWD_STOCHASTIC_KERNEL,
                hb.TABLE_GRAD_VALUES_KERNEL,
                hg.CELL_ROW_GRAD_X_KERNEL, hg.CELL_PAIR_GRAD_X_KERNEL,
-               hg.CELL_FACTOR_GRAD_X_KERNEL]
-    streams = {"cell_row_grad_x": hs.CELL_ROW_GRAD_KERNEL,
-               "cell_pair_grad_x": hs.CELL_PAIR_GRAD_KERNEL,
-               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL,
-               "table_grad_values": hs.TABLE_GRAD_PAIRS_KERNEL}
+               hg.CELL_FACTOR_GRAD_X_KERNEL,
+               hs.TABLE_GRAD_PAIRS_KERNEL, hs.CELL_ROW_GRAD_KERNEL]
+    streams = {"cell_pair_grad_x": hs.CELL_PAIR_GRAD_KERNEL,
+               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL}
     counted = kernels + list(streams.values())
     libraries = sorted({k.library for k in counted})
     jobs = [partial(build, lib) for lib in libraries]
@@ -3451,6 +3924,10 @@ def main() -> int:
     report, captured = {}, {}
     compare_kernels(torch, dev, report, card, baseline)
     compare_cell_kernels(torch, dev, report, baseline)
+    # the stream entries that back_prop=True launches: their phase-2
+    # readings become their own rows
+    report["table_grad_pairs"] = report["table_grad_values"].pop("stream")
+    report["cell_row_grad"] = report["cell_row_grad_x"].pop("stream")
 
     t0 = time.perf_counter()
     views = FixtureViews()
@@ -3488,7 +3965,7 @@ def main() -> int:
     cell_grads = [k.name for k in counted if k.library in
                   ("cell_table_grad", "cell_factor_grad")]
 
-    def cell_path(name, payload, kernel, fn, plain):
+    def cell_path(name, payload, kernel, fn, plain, out=None):
         """The cell configuration with `payload`: the path `name` must
         launch the fused cell table gradient `kernel` once a step and
         every other cell table gradient never."""
@@ -3498,7 +3975,7 @@ def main() -> int:
         launches, n_steps = train_slice(
             torch, counted, card, views, name, cfg,
             ("occ_bits", "segment_sum", kernel.name), (hg, fn, plain),
-            captured, profile)
+            captured, profile, out=out)
         check(launches[kernel.name] == n_steps,
               f"{kernel.name} launched {launches[kernel.name]} times in "
               f"{n_steps} steps of {name}")
@@ -3507,9 +3984,14 @@ def main() -> int:
               f"{name} launched another cell table gradient: {others}")
         return launches
 
+    cell_out = {}
     cell_launches = cell_path(
         "train_cell", "bf16factor", hg.CELL_FACTOR_GRAD_X_KERNEL,
-        "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain)
+        "tet_factor_grad_x_kernel", hg.tet_factor_grad_x_plain, cell_out)
+    # the checkpoint that the fast chain's later stages read (phases 12
+    # and 13)
+    cell_ckpt = os.path.join(cell_out["trainer"].cfg.root, "ngp.pt")
+    cell_out.pop("trainer").save(cell_ckpt)
     # the CLI's default table gradient for --layout cell (--grad_payload
     # f32): the rows route, K5 fused
     f32_launches = cell_path(
@@ -3519,6 +4001,10 @@ def main() -> int:
     pair_launches = cell_path(
         "train_cell_bf16pair", "bf16pair", hg.CELL_PAIR_GRAD_X_KERNEL,
         "cell_pair_grad_x_kernel", hg.cell_pair_grad_x_plain)
+
+    # phase 11: the unbounded 360 path at the trainer defaults
+    train_360_launches = train_360_slice(torch, counted, card, views,
+                                         captured, report, profile)
 
     # phase 7: stage 2 at run_nerfsynthetic_field.sh's widths
     field_launches, root7, ckpt7, big7 = field_slice(
@@ -3530,6 +4016,25 @@ def main() -> int:
     finetune_launches = finetune_slice(
         torch, counted, card, views, captured, report, root7, ckpt7, big7,
         profile)
+
+    # phase 12: stage 4 in the cell layout, run_nerfsynthetic_finetune.sh's
+    # flags with run_nerfsynthetic_tpu_fast.sh's --layout cell
+    # --grad_payload bf16factor --n_levels 8 --n_features 4, on phase 5's
+    # checkpoint and phase 8's smp_mesh.ply
+    finetune_cell_launches = finetune_slice(
+        torch, counted, card, views, captured, report, root7, cell_ckpt,
+        None, profile, cell=dict(layout="cell", grad_payload="bf16factor",
+                                 n_levels=8, n_features=4))
+
+    # phase 13: back_prop=True of the quadrature field, corner and cell
+    corner_bp, cell_bp = field_back_prop_slice(
+        torch, counted, card, views, captured, report, ckpt7, cell_ckpt,
+        profile)
+    back_prop_launches = {k: corner_bp[k] + cell_bp[k] for k in corner_bp}
+    bp = report["field_back_prop"]
+    report["table_grad_pairs"]["in_situ_ms"] = \
+        bp["corner"]["stream_in_situ_ms"]
+    report["cell_row_grad"]["in_situ_ms"] = bp["cell"]["stream_in_situ_ms"]
 
     # phase 9: stages 5 and 6 at run_nerfsynthetic_fit_sg.sh's and
     # run_nerfsynthetic_baking.sh's flags, on phase 8's artifacts
@@ -3557,7 +4062,10 @@ def main() -> int:
              "train_field": field_launches,
              "train_finetune": finetune_launches,
              "train_fit_sg": fit_sg_launches, "bake": bake_launches,
-             "train_stochastic": stochastic_launches}
+             "train_stochastic": stochastic_launches,
+             "train_360": train_360_launches,
+             "train_finetune_cell": finetune_cell_launches,
+             "field_back_prop": back_prop_launches}
     for name, stream in streams.items():
         report[name]["stream"]["launches_by_path"] = {
             p: n[stream.name] for p, n in paths.items()}
@@ -3570,6 +4078,9 @@ def main() -> int:
                       "bake": report["bake"]}, default=float))
     print(json.dumps({"train_stochastic": report["train_stochastic"]},
                      default=float))
+    print(json.dumps({k: report[k] for k in (
+        "train_360", "train_finetune_cell", "field_back_prop")},
+        default=float))
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

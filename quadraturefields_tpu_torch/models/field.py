@@ -18,11 +18,11 @@ differentiable in the parameters, so the stage-2 loss backpropagates
 through it. With the encode's input detached, that first-order pass
 never enters the encode's backward: the loss's backward calls it once,
 for the table (the fused table-gradient kernel K1 on the card). With
-`back_prop=True` the loss would need the encode's position gradient
-differentiated again, in the table, and the port's position gradient
-(ops/hashgrid.py `_position_grad`) is not differentiable in the table,
-so building that graph raises NotImplementedError; the first-order
-gradient alone (create_graph=False, as the grid export asks) works.
+`back_prop=True` the first-order pass takes the encode's position
+gradient, which the loss then differentiates again
+(ops/hashgrid.py `_HashGridEncodeGrad`): once a step the table gradient
+of the position gradient (K1's stream interface on the card, K5's
+stream entry in the cell layout) beside the fused first-order one.
 """
 from __future__ import annotations
 
@@ -148,13 +148,6 @@ def _with_input_grad(apply_fn, params, x, create_graph: bool):
     return field, grad
 
 
-def _refuse_back_prop(cfg: FieldConfig, create_graph: bool) -> None:
-    if cfg.back_prop and create_graph:
-        raise NotImplementedError(
-            "back_prop=True needs the encode's position gradient "
-            "differentiated in the table, which the port does not have")
-
-
 def field_with_grad(params, x: torch.Tensor, cfg: FieldConfig,
                     create_graph: bool = True):
     """(field [N, output_dim], dfield/dx [N, 3]): the gradient of the
@@ -163,7 +156,6 @@ def field_with_grad(params, x: torch.Tensor, cfg: FieldConfig,
     gradient). create_graph (the default, as the stage-2 loss needs)
     keeps both differentiable in the params; False (the grid export)
     returns detached tensors."""
-    _refuse_back_prop(cfg, create_graph)
     return _with_input_grad(lambda p, xx: field_apply(p, xx, cfg), params,
                             x, create_graph)
 
@@ -171,8 +163,8 @@ def field_with_grad(params, x: torch.Tensor, cfg: FieldConfig,
 def field_double_grad(params, x: torch.Tensor, cfg: FieldConfig):
     """[N, 3, 3] second derivative of the scalar field at x, rows
     d(grad_i)/dx (Field.field_double_grad, field.py:240-251);
-    differentiable in the params."""
-    _refuse_back_prop(cfg, True)
+    differentiable in the params (under back_prop through the encode's
+    third derivative, ops/hashgrid.py `_HashGridEncodeGrad`)."""
     with torch.enable_grad():
         xx = x.detach().requires_grad_(True)
         field = field_apply(params, xx, cfg)

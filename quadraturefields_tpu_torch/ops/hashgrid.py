@@ -28,7 +28,12 @@ entries of csrc/cell_table_grad.cu, from x as K7's, for F in
 CELL_GRAD_X_FEATURES (other F take K6's and K5's stream entries,
 `sorted_pair_grad` and `sorted_row_grad`), each a CUDA kernel on the
 card and its plain version on the CPU.
-The position gradient is taken by autograd through the weights. One
+The position gradient is taken by autograd through the weights. Under
+create_graph the encode's VJP is itself differentiable, to any order
+(`_HashGridEncodeGrad`, JAX's differentiated custom VJP): the table
+gradient of the position gradient, a stream of per-corner
+contributions, goes to `scatter_rows`: K1's stream interface (corner)
+or K5's stream entry (cell). One
 known difference from JAX, on a set of measure zero: the weights clip
 the cell fraction to [0, 1], and at a tie (frac exactly 0 or 1, i.e. x
 on a grid knot) jax.grad(jnp.clip) gives 0.5 where torch.clamp gives 1,
@@ -832,24 +837,6 @@ def _cell_table_grad(x, g, cfg: HashGridConfig):
     return hashgrid_sorted.sorted_row_grad(idx.reshape(-1), contrib, E)
 
 
-def _cell_position_grad(table, x, g, cfg: HashGridConfig):
-    """dL/dx of the cell encode (ops/hashgrid.py:613-633): dL/dw8[c] =
-    sum_f row[c*F + f] * g[f], regathered per level, pulled back through
-    the weights by autograd. Payload-independent."""
-    n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
-    with torch.enable_grad():
-        xx = x.detach().requires_grad_(True)
-        idx, w8 = _cell_indices_weights(xx.clamp(0.0, 1.0), cfg)
-        g3 = g.to(torch.float32).reshape(n, L, 1, F)
-        dl_dw = torch.cat([
-            (table.detach()[idx[:, l]].to(torch.float32).reshape(n, 8, F)
-             * g3[:, l]).sum(dim=2)
-            for l in range(L)
-        ], dim=1)
-        (d_x,) = torch.autograd.grad(w8, xx, dl_dw)
-    return d_x
-
-
 def _encode_forward(table, x, cfg: HashGridConfig):
     if cfg.layout == "cell":
         return encode_cell_plain(table, x, cfg)
@@ -870,46 +857,212 @@ def _table_grad(x, g, cfg: HashGridConfig):
     return table_grad_kernel(x, g, cfg)
 
 
-def _position_grad(table, x, g, cfg: HashGridConfig):
-    """dL/dx through the interpolation weights (ops/hashgrid.py:830-842):
-    dL/dw[c] = sum_f table[row_c, f] * g[f], pulled back through the
-    weights' dependence on x by autograd, as JAX does with jax.vjp. x is
-    the clamped input, and the weights clamp it again."""
+def _indices_weights(x: torch.Tensor, cfg: HashGridConfig):
+    """(rows, weights) of either layout: the corner rows [N, L*C] and
+    weights [N, L*C] (_corner_indices_weights), or the cell rows [N, L]
+    and their 8 dense corner weights [N, L*8] (_cell_indices_weights)."""
     if cfg.layout == "cell":
-        return _cell_position_grad(table, x, g, cfg)
-    n = x.shape[0]
-    L, C, F = cfg.n_levels, cfg.corners, cfg.n_features
+        return _cell_indices_weights(x, cfg)
+    return _corner_indices_weights(x, cfg)
+
+
+def scatter_rows(idx, vals, cfg: HashGridConfig):
+    """The table-shaped sum of per-corner contributions vals [N, L, C, F]
+    f32 at the rows idx of _indices_weights -> [E, row width] f32: in
+    the cell layout the [N*L, 8F] rows go to K5's stream entry
+    (sorted_row_grad), in the corner layout the contributions go to K1's
+    stream interface (sorted_table_grad), which sums feature pairs, so
+    an odd F raises. A kernel on the card, its plain version on the
+    CPU."""
+    n, L, F = idx.shape[0], cfg.n_levels, cfg.n_features
+    E = cfg.total_entries
+    if cfg.layout == "cell":
+        return hashgrid_sorted.sorted_row_grad(
+            idx.reshape(-1), vals.reshape(n * L, 8 * F), E)
+    if F % 2:
+        raise ValueError(f"the corner table gradient of a stream sums "
+                         f"feature pairs (K1's stream interface): F = {F} "
+                         f"is odd")
+    # row r's feature pair p is entry r * F/2 + p of an [E * F/2, 2] table
+    pairs = F // 2
+    entry = (idx.reshape(-1, 1) * pairs
+             + torch.arange(pairs, device=idx.device)).reshape(-1)
+    vals = vals.reshape(-1, 2)
+    out = hashgrid_sorted.sorted_table_grad(
+        entry, vals[:, 0].contiguous(), vals[:, 1].contiguous(), E * pairs)
+    return out.reshape(E, F)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The f32 features [N, L, C, F] of every corner of every (point,
+    level) at the rows of _indices_weights (C = 8 in the cell layout,
+    the corner slots of each cell row), with the table gradient summed
+    by scatter_rows; differentiable to any order (_ScatterRows)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, cfg):
+        ctx.cfg, ctx.dtype = cfg, table.dtype
+        ctx.save_for_backward(idx)
+        n, L, F = idx.shape[0], cfg.n_levels, cfg.n_features
+        return table[idx].to(torch.float32).reshape(n, L, -1, F)
+
+    @staticmethod
+    def backward(ctx, v):
+        (idx,) = ctx.saved_tensors
+        return (_ScatterRows.apply(v, idx, ctx.cfg).to(ctx.dtype), None,
+                None)
+
+
+class _ScatterRows(torch.autograd.Function):
+    """scatter_rows with its adjoint, the gather, as its gradient."""
+
+    @staticmethod
+    def forward(ctx, vals, idx, cfg):
+        ctx.cfg = cfg
+        ctx.save_for_backward(idx)
+        return scatter_rows(idx, vals.contiguous(), cfg)
+
+    @staticmethod
+    def backward(ctx, v):
+        (idx,) = ctx.saved_tensors
+        return _GatherRows.apply(v, idx, ctx.cfg), None, None
+
+
+def _dl_dw(table, idx, g, cfg: HashGridConfig) -> torch.Tensor:
+    """dL/dw [N, L*C] = sum_f table[row_c, f] * g[f] per corner of every
+    (point, level): the cotangent of the interpolation weights."""
+    n, L, F = idx.shape[0], cfg.n_levels, cfg.n_features
+    feats = _GatherRows.apply(table, idx, cfg)
+    return (feats * g.to(torch.float32).reshape(n, L, 1, F)).sum(dim=3) \
+        .reshape(n, -1)
+
+
+def _position_grad(table, x, g, cfg: HashGridConfig):
+    """dL/dx through the interpolation weights (ops/hashgrid.py:830-842,
+    the cell layout's :613-633): dL/dw (_dl_dw) pulled back through the
+    weights' dependence on x by autograd, as JAX does with jax.vjp. x is
+    the clamped input, and the weights clamp it again. Payload-
+    independent."""
     with torch.enable_grad():
         xx = x.detach().requires_grad_(True)
-        idx, w = _corner_indices_weights(xx.clamp(0.0, 1.0), cfg)
-        feats = table.detach()[idx].to(torch.float32)      # [N, L*C, F]
-        g3 = g.to(torch.float32).reshape(n, L, 1, F)
-        dl_dw = (feats.reshape(n, L, C, F) * g3).sum(dim=3)
-        (d_x,) = torch.autograd.grad(w, xx, dl_dw.reshape(n, L * C))
+        idx, w = _indices_weights(xx.clamp(0.0, 1.0), cfg)
+        (d_x,) = torch.autograd.grad(w, xx, _dl_dw(table.detach(), idx, g,
+                                                   cfg))
     return d_x
+
+
+def _weights_jvp(x: torch.Tensor, u: torch.Tensor, cfg: HashGridConfig):
+    """(rows, s) of x [N, 3]: the rows of _indices_weights and s = (dw/dx)
+    u [N, L*C], the derivative of every interpolation weight along u
+    [N, 3] in the same layout, by forward-mode autograd through the
+    weights; differentiable in x and u by reverse mode."""
+    def weights(xx):
+        idx, w = _indices_weights(xx.clamp(0.0, 1.0), cfg)
+        return w, idx
+
+    _, s, idx = torch.func.jvp(weights, (x,), (u.to(torch.float32),),
+                               has_aux=True)
+    return idx, s
+
+
+def _wanted(ctx, i: int) -> bool:
+    """Whether the running backward pass needs the gradient of the
+    Function's input i: autograd.grad(field, x) asks for no table
+    gradient, a backward(inputs=params) for no position gradient. The
+    engine answers for nodes that are not leaves (hashgrid_encode hands
+    the Function views of leaves); for a leaf under autograd.grad it
+    cannot, and the gradient is computed."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = ctx.next_functions[i][0]
+    try:
+        return node is None or torch._C._will_engine_execute_node(node)
+    except RuntimeError:
+        return True
+
+
+def _encode_grads(table, x, g, cfg: HashGridConfig, want_table: bool,
+                  want_x: bool):
+    """The encode's VJP at clamped x [N, 3] for the cotangent g [N, L*F]
+    f32: (dL/dtable [E, row width] or None, dL/dx [N, 3] or None)."""
+    d_table = _table_grad(x, g, cfg).to(table.dtype) if want_table else None
+    d_x = _position_grad(table, x, g, cfg) if want_x else None
+    return d_table, d_x
+
+
+class _HashGridEncodeGrad(torch.autograd.Function):
+    """The encode's VJP as a differentiable function of (table, x, g):
+    its forward is _encode_grads (the fused table gradient and the
+    position gradient). Its backward takes the cotangents u of dL/dx and
+    U of dL/dtable and returns the gradients in (table, x, g) of
+    psi = <u, dL/dx> + <U, dL/dtable> = sum s * dL/dw + sum w * dL/dw(U),
+    s = (dw/dx) u (_weights_jvp), by autograd through the weights and
+    _GatherRows, as JAX differentiates its custom VJP (ops/hashgrid.py
+    :705-842) and tiny-cuda-nn's grid encoding computes
+    backward_backward_input:
+      table: s[l, c] * g[l, f] at each corner row, s = (dw/dx) u, a
+             segment sum on the card (scatter_rows);
+      g:     sum_c s[l, c] * table[row_c, f], plus the encode of U at x;
+      x:     the weights' second derivative against dL/dw along u, plus
+             U's dL/dw pulled back through the weights (zero almost
+             everywhere for tet weights in the first term).
+    Under create_graph these are differentiable again (the third order,
+    as the params gradient of field_double_grad under back_prop=True)."""
+
+    @staticmethod
+    def forward(ctx, table, x, g, cfg, want_table, want_x):
+        ctx.cfg = cfg
+        ctx.save_for_backward(table, x, g)
+        return _encode_grads(table, x, g, cfg, want_table, want_x)
+
+    @staticmethod
+    def backward(ctx, u_table, u_x):
+        cfg, create = ctx.cfg, torch.is_grad_enabled()
+        want = [_wanted(ctx, i) for i in range(3)]
+        # the saved tensors themselves under create_graph, so that the
+        # gradients stay in the graph; else fresh leaves where wanted
+        table, x, g = (t if create and t.requires_grad
+                       else t.detach().requires_grad_(need)
+                       for t, need in zip(ctx.saved_tensors, want))
+        with torch.enable_grad():
+            psi = []
+            if u_x is not None:
+                idx, s = _weights_jvp(x, u_x, cfg)
+                psi.append((s * _dl_dw(table, idx, g, cfg)).sum())
+            if u_table is not None:
+                idx, w = _indices_weights(x.clamp(0.0, 1.0), cfg)
+                psi.append((w * _dl_dw(u_table, idx, g, cfg)).sum())
+            psi = sum(psi)
+            inputs = [t for t, need in zip((table, x, g), want) if need]
+            grads = iter(torch.autograd.grad(
+                psi, inputs, create_graph=create, allow_unused=True)
+                if inputs and psi.requires_grad else ())
+        return (*(next(grads, None) if need else None for need in want),
+                None, None, None)
 
 
 class _HashGridEncode(torch.autograd.Function):
     """Encode with its VJP: the table gradient (a kernel on the card)
-    and, only when asked for, the position gradient."""
+    and the position gradient, each only where the backward pass needs
+    it. The VJP is _HashGridEncodeGrad, a Function of its own, so under
+    create_graph the position gradient can be differentiated again
+    (back_prop=True of the quadrature field)."""
 
     @staticmethod
     def forward(ctx, table, x, cfg):
-        xc = x.clamp(0.0, 1.0).contiguous()
         ctx.cfg = cfg
-        ctx.save_for_backward(table, xc)
-        return _encode_forward(table, xc, cfg)
+        ctx.save_for_backward(table, x)
+        return _encode_forward(table, x.clamp(0.0, 1.0).contiguous(), cfg)
 
     @staticmethod
     def backward(ctx, g):
-        table, xc = ctx.saved_tensors
+        table, x = ctx.saved_tensors
         cfg = ctx.cfg
         g = g.to(torch.float32).contiguous()
-        d_table = d_x = None
-        if ctx.needs_input_grad[0]:
-            d_table = _table_grad(xc, g, cfg).to(table.dtype)
-        if ctx.needs_input_grad[1]:
-            d_x = _position_grad(table, xc, g, cfg)
+        want_table, want_x = _wanted(ctx, 0), _wanted(ctx, 1)
+        xc = x.clamp(0.0, 1.0).contiguous()
+        d_table, d_x = _HashGridEncodeGrad.apply(table, xc, g, cfg,
+                                                 want_table, want_x)
         return d_table, d_x, None
 
 
@@ -928,7 +1081,8 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor,
     if not (torch.is_grad_enabled()
             and (table.requires_grad or x.requires_grad)):
         return _encode_forward(table, x, cfg)
-    return _HashGridEncode.apply(table, x, cfg)
+    # views, so that the engine can say which gradients a pass needs
+    return _HashGridEncode.apply(table.view_as(table), x.view_as(x), cfg)
 
 
 def hashgrid_encode_batched(table, x, cfg: HashGridConfig,

@@ -330,7 +330,9 @@ class Stage2Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self._loss_fn(self.field_params, origins, viewdirs,
                                   pixels, bkgd, t_jitter)
-        loss.backward()
+        # the parameters' gradients only: with back_prop the graph reaches
+        # the sample positions too, whose gradient nothing reads
+        loss.backward(inputs=_leaves(self.field_params))
         # the loss sees the field's gradient only, so the decoder's output
         # bias gets none; a zero gradient lets Adam's weight decay move
         # it as optax's chain does in JAX

@@ -3,10 +3,13 @@ on the same seeded numpy inputs and carried-across weights: the field and
 its position gradient (tet and cube corner grids, the cell grid), the
 gradient of the stage-2 loss through the position gradient in the table
 and the decoder, the second derivative, the two regularising losses, the
-SIREN field, the delta field and the sinusoidal encoding; and the port's
-refusal of back_prop=True where a graph through the position gradient
-would be built. JAX runs on the CPU; the port takes each kernel's plain
-version there."""
+SIREN field, the delta field and the sinusoidal encoding; with
+back_prop=True (the encode's position gradient in the graph) the loss's
+gradient and the second derivative, and the second-order table
+gradient's stream against a float64 index_add_. JAX runs on the CPU; the
+port takes each kernel's plain version there."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +20,7 @@ from quadraturefields_tpu.models import field as jf
 from quadraturefields_tpu.models import mlp_nerf as jmn
 from quadraturefields_tpu_torch.models import field as tf
 from quadraturefields_tpu_torch.models import mlp_nerf as tmn
+from quadraturefields_tpu_torch.ops import hashgrid as thg
 from quadraturefields_tpu_torch.utils.convert import field_params_from_jax
 
 torch.set_num_threads(1)
@@ -88,14 +92,36 @@ def test_field_apply_and_with_grad_match_jax(grid):
     assert torch.equal(eg, tgrad.detach())
 
 
+def _port_loss_grads(tp, tcfg, x, w, w_rev, dirs, mask):
+    """(loss, {leaf name: grad}) of the port's stage-2 loss through
+    field_with_grad, on fresh leaves of tp."""
+    leaves = {"table": tp["table"].detach().clone().requires_grad_(True)}
+    layers = []
+    for i, layer in enumerate(tp["decoder"]["layers"]):
+        layers.append({})
+        for k, v in layer.items():
+            leaves[f"{i}.{k}"] = layers[-1][k] = \
+                v.detach().clone().requires_grad_(True)
+    params = {"table": leaves["table"], "decoder": {"layers": layers}}
+    _, g = tf.field_with_grad(params, torch.as_tensor(x), tcfg)
+    lt = tf.field_loss(torch.as_tensor(w), torch.as_tensor(w_rev), g,
+                       torch.as_tensor(dirs), mask=torch.as_tensor(mask))
+    lt.backward()
+    return float(lt.detach()), {k: v.grad for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("back_prop", [False, True])
 @pytest.mark.parametrize("grid", list(_GRIDS))
-def test_field_loss_gradient_matches_jax(grid):
+def test_field_loss_gradient_matches_jax(grid, back_prop):
     """The stage-2 loss through field_with_grad, masked as the trainer
     masks padding: the value within 1e-5 relative, the gradient of every
     leaf (table and decoder) within 1e-4 of its max. The decoder's output
     bias moves the field and not its gradient: its gradient is 0 in JAX,
-    and autograd leaves it unset."""
-    jcfg, tcfg, jp, tp = _field(grid)
+    and autograd leaves it unset. With back_prop the position gradient
+    goes through the encode and the loss differentiates it again: that
+    second-order term moves the table's gradient by about its own size
+    against back_prop=False's."""
+    jcfg, tcfg, jp, tp = _field(grid, back_prop=back_prop)
     rng = np.random.default_rng(3)
     x = _x(seed=2)
     dirs = rng.normal(size=(300, 3)).astype(np.float32)
@@ -109,35 +135,36 @@ def test_field_loss_gradient_matches_jax(grid):
                              jnp.asarray(dirs), mask=jnp.asarray(mask))
 
     lj, gj = jax.jit(jax.value_and_grad(jloss))(jp)
-    leaves = {"table": tp["table"]}
-    tp["table"].requires_grad_(True)
-    for i, layer in enumerate(tp["decoder"]["layers"]):
-        for k, v in layer.items():
-            leaves[f"{i}.{k}"] = v.requires_grad_(True)
-    _, g = tf.field_with_grad(tp, torch.as_tensor(x), tcfg)
-    lt = tf.field_loss(torch.as_tensor(w), torch.as_tensor(w_rev), g,
-                       torch.as_tensor(dirs), mask=torch.as_tensor(mask))
-    lt.backward()
-    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    lt, grads = _port_loss_grads(tp, tcfg, x, w, w_rev, dirs, mask)
+    np.testing.assert_allclose(lt, float(lj), rtol=1e-5)
     want = {"table": gj["table"]}
     for i, layer in enumerate(gj["decoder"]["layers"]):
         for k, v in layer.items():
             want[f"{i}.{k}"] = v
-    assert set(want) == set(leaves)
+    assert set(want) == set(grads)
     last_b = f"{len(gj['decoder']['layers']) - 1}.b"
-    for name, leaf in leaves.items():
+    for name, grad in grads.items():
         if name == last_b:
-            assert leaf.grad is None
+            assert grad is None
             assert not np.asarray(want[name]).any()
             continue
         assert np.abs(np.asarray(want[name])).max() > 0, name
-        assert _rel_max(leaf.grad, want[name]) <= 1e-4, name
+        assert _rel_max(grad, want[name]) <= 1e-4, name
+    if back_prop:
+        _, first = _port_loss_grads(
+            tp, dataclasses.replace(tcfg, back_prop=False), x, w, w_rev,
+            dirs, mask)
+        assert _rel_max(grads["table"], first["table"]) > 0.1
 
 
-def test_field_double_grad_and_losses_match_jax():
+@pytest.mark.parametrize("grid,back_prop", [("tet", False), ("tet", True),
+                                            ("cube", True)])
+def test_field_double_grad_and_losses_match_jax(grid, back_prop):
     """The [N, 3, 3] second derivative within 1e-4 of max, and the two
-    regularising losses within 1e-5 relative."""
-    jcfg, tcfg, jp, tp = _field("tet")
+    regularising losses within 1e-5 relative. With back_prop it holds
+    the encode's second derivative in x: zero almost everywhere for tet
+    weights, not for cube (trilinear) ones."""
+    jcfg, tcfg, jp, tp = _field(grid, back_prop=back_prop)
     x = _x(64, seed=4)
     jh = jax.jit(lambda p, x: jf.field_double_grad(p, x, jcfg))(
         jp, jnp.asarray(x))
@@ -153,27 +180,75 @@ def test_field_double_grad_and_losses_match_jax():
         float(jf.compute_double_field_loss(jh)), rtol=1e-5)
 
 
-def test_back_prop_true_is_refused_where_a_graph_is_built():
-    """back_prop=True: building the graph through the position gradient
-    raises NotImplementedError (field_with_grad's default, the second
-    derivative); the first-order gradient alone, which goes through the
-    encode's position gradient, equals JAX's within 1e-4 of max."""
-    jcfg, tcfg, jp, tp = _field("tet", back_prop=True)
-    x = _x(128, seed=5)
-    with pytest.raises(NotImplementedError):
-        tf.field_with_grad(tp, torch.as_tensor(x), tcfg)
-    with pytest.raises(NotImplementedError):
-        tf.field_double_grad(tp, torch.as_tensor(x), tcfg)
-    _, jg = jax.jit(lambda p, x: jf.field_with_grad(p, x, jcfg))(
-        jp, jnp.asarray(x))
-    _, tg = tf.field_with_grad(tp, torch.as_tensor(x), tcfg,
-                               create_graph=False)
-    assert _rel_max(tg, jg) <= 1e-4
-    # the encode's branch is in it: back_prop=False gives another gradient
-    _, t0 = tf.field_with_grad(
-        tp, torch.as_tensor(x), tf.FieldConfig(**dict(_SMALL, interp="tet")),
-        create_graph=False)
-    assert _rel_max(tg, t0) > 1e-3
+@pytest.mark.parametrize("grid,back_prop", [("cube", False), ("tet", True),
+                                            ("cube", True), ("cell", True)])
+def test_double_field_loss_gradient_matches_jax(grid, back_prop):
+    """The params gradient of compute_double_field_loss(field_double_grad)
+    within 1e-4 of max of jax.grad's, leaf by leaf. With back_prop it
+    takes the encode's third derivative: the second order's own
+    gradients (ops/hashgrid.py _HashGridEncodeGrad) differentiated
+    again."""
+    jcfg, tcfg, jp, tp = _field(grid, back_prop=back_prop)
+    x = _x(64, seed=5)
+    table = tp["table"].detach().clone().requires_grad_(True)
+    layers = [{k: v.detach().clone().requires_grad_(True)
+               for k, v in layer.items()}
+              for layer in tp["decoder"]["layers"]]
+    params = {"table": table, "decoder": {"layers": layers}}
+    loss = tf.compute_double_field_loss(
+        tf.field_double_grad(params, torch.as_tensor(x), tcfg))
+    loss.backward()
+    lj, gj = jax.value_and_grad(lambda p: jf.compute_double_field_loss(
+        jf.field_double_grad(p, jnp.asarray(x), jcfg)))(jp)
+    np.testing.assert_allclose(float(loss.detach()), float(lj), rtol=1e-5)
+    assert np.abs(np.asarray(gj["table"])).max() > 0
+    assert _rel_max(table.grad, gj["table"]) <= 1e-4
+    for layer, jlayer in zip(layers, gj["decoder"]["layers"]):
+        for k, v in layer.items():
+            if np.abs(np.asarray(jlayer[k])).max() > 0:
+                assert _rel_max(v.grad, jlayer[k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("grid,n_features", [("tet", 2), ("cube", 4),
+                                             ("cell", 2)])
+def test_second_order_table_grad_stream_matches_f64(grid, n_features):
+    """The table gradient of the position gradient (back_prop=True's
+    second-order term), taken by autograd through hashgrid_encode: the
+    stream of s[l, c] * g[l, f] at the corner rows, s = (dw/dx) u by
+    forward-mode autograd, through its route's plain version (K1's
+    stream interface over feature pairs, K5's stream entry in the cell
+    layout), within 1e-5 of max of the same stream summed by index_add_
+    in float64."""
+    cfg = thg.HashGridConfig(n_levels=4, n_features=n_features,
+                             log2_hashmap_size=10, per_level_scale=1.5,
+                             **_GRIDS[grid])
+    rng = np.random.default_rng(7)
+    n, L, F = 2000, cfg.n_levels, n_features
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    u = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    g = torch.as_tensor(rng.normal(size=(n, L * F)).astype(np.float32))
+    table = torch.as_tensor(rng.normal(size=(cfg.total_entries,
+                                             cfg.row_width))
+                            .astype(np.float32)).requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+    (d_x,) = torch.autograd.grad((thg.hashgrid_encode(table, xx, cfg)
+                                  * g).sum(), xx, create_graph=True)
+    (got,) = torch.autograd.grad((d_x * u).sum(), table)
+
+    def weights(xx):
+        idx, w = thg._indices_weights(xx, cfg)
+        return w, idx
+
+    _, s, idx = torch.func.jvp(weights, (x,), (u,), has_aux=True)
+    vals = (s.double().reshape(n, L, -1, 1)
+            * g.double().reshape(n, L, 1, F))
+    want = torch.zeros((cfg.total_entries, cfg.row_width),
+                       dtype=torch.float64)
+    want.index_add_(0, idx.reshape(-1),
+                    vals.reshape(idx.numel(), cfg.row_width))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(want.abs().max()) > 0
+    assert _rel_max(got, want) <= 1e-5
 
 
 def test_sinusoidal_encode_matches_jax():

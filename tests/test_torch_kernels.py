@@ -961,3 +961,42 @@ def test_cell_encode_backward_launches_its_kernel(dev, mode, payload,
     _check_rel(got, plain(*_f64(calls[0])))
     launched = {k: v.launches - before[k] for k, v in kernels.items()}
     assert launched == {k: int(k == name) for k in kernels}
+
+
+@pytest.mark.parametrize("layout,stream", [
+    ("corner", "table_grad_pairs_kernel"),
+    ("cell", "row_grad_kernel"),
+])
+def test_second_order_stream_matches_f64(dev, layout, stream, monkeypatch):
+    """back_prop=True on the card: the field's eikonal-style loss through
+    field_with_grad differentiates the encode's position gradient again,
+    and its table gradient goes to K1's stream interface (corner) or K5's
+    stream entry (cell), once; the kernel's output lies within 1e-5 of
+    max of index_add_ of the same stream in float64."""
+    from quadraturefields_tpu_torch.models import field as fm
+
+    cfg = fm.FieldConfig(scale=0.5, log2_hashmap_size=14, n_levels=8,
+                         max_resolution=128, hidden_size=16, interp="tet",
+                         layout=layout, back_prop=True)
+    g = torch.Generator(device=dev).manual_seed(6)
+    params = fm.field_init(g, cfg, dev)
+    params["table"] = (params["table"] * 1e3).requires_grad_(True)
+    x = torch.rand((8192, 3), generator=g, device=dev) - 0.5
+    calls = []
+    real = getattr(hs, stream)
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(hs, stream, recording)
+    _, grad = fm.field_with_grad(params, x, cfg)
+    ((grad.norm(dim=1) - 1.0) ** 2).mean().backward()
+    assert len(calls) == 1
+    (idx, *vals, e), got = calls[0]
+    vals = torch.stack(vals, 1) if len(vals) == 2 else vals[0]
+    want = torch.zeros((e, vals.shape[1]), dtype=torch.float64, device=dev)
+    want.index_add_(0, idx.long(), vals.double())
+    assert float(want.abs().max()) > 0
+    _check_rel(got, want)

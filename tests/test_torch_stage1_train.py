@@ -409,3 +409,54 @@ def test_stochastic_quality_cost_on_the_cpu(tmp_path):
             print(f"{name} seed {seed}: the stochastic mode costs "
                   f"{cost:.4f} dB (margin {STOCHASTIC_PSNR_MARGIN})")
             assert cost <= STOCHASTIC_PSNR_MARGIN, (name, seed, cost)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n_levels,log2_samples", [(8, 14), (16, 16)])
+def test_360_quality_on_the_cpu(tmp_path, n_levels, log2_samples):
+    """Both packages train the unbounded 360 path (scene_type "360": the
+    contracted [-1, 1]^3 aabb, cone stepping from near 0.2 to far 100,
+    no coarse level; 10 rays a step until the dynamic batch starts at
+    step 100, as the 360 loader starts) on the fixture scene for 300
+    steps at chip_smoke.py phase 11's settings cut to a 48^2 fixture,
+    2^14 rows and 2^14 or 2^16 samples a step (L8 or the defaults' L16;
+    its 128^3 grid kept), and evaluate; prints each package's final
+    PSNR, the PSNR of the views' background alone and the loss ratio.
+    The phase's gate (the PSNR at least the background's less
+    TRAIN_360_PSNR_MARGIN) is set from these readings, and both must
+    pass it here."""
+    from chip_smoke import TRAIN_360_PSNR_MARGIN, background_psnr
+    from quadraturefields_tpu.data import nerf_synthetic as jns
+    from quadraturefields_tpu_torch.data import nerf_synthetic as tns
+
+    data = str(tmp_path / "data")
+    jax_write_fixture(data, res=48, n_train=8, n_test=2)
+    kw = dict(scene="fixture", scene_type="360", data_root=data,
+              max_steps=300, batch_size_log2=log2_samples,
+              n_levels=n_levels, log2_hashmap_size=14, eval_chunk=2304,
+              ckpt_every=10**9, log_every=10**9)
+    for name, mod, ns, dev in (("jax", jst, jns, {}),
+                               ("port", tst, tns, {"device": "cpu"})):
+        views = dict(
+            train_dataset=ns.SubjectLoader(subject_id="fixture",
+                                           root_fp=data, split="train",
+                                           num_rays=10),
+            test_dataset=ns.SubjectLoader(subject_id="fixture",
+                                          root_fp=data, split="test",
+                                          num_rays=None))
+        tr = mod.Stage1Trainer(mod.Stage1Config(
+            root=str(tmp_path / name), **kw), **views, **dev)
+        losses = []
+        while tr.step <= kw["max_steps"]:
+            losses.append(float(tr.train_one_step()[0]))
+        ratio = np.mean(losses[-20:]) / np.mean(losses[:20])
+        psnr = tr.evaluate()["psnr"]
+        bg = background_psnr(views["test_dataset"])
+        n_rays = views["train_dataset"].num_rays
+        print(f"{name}: 360 path L{n_levels} 2^{log2_samples} samples, eval "
+              f"PSNR {psnr:.4f} dB, the background alone {bg:.4f} dB "
+              f"(gain {psnr - bg:.4f}), last-20 / first-20 loss "
+              f"{ratio:.4f}, batch {n_rays} rays (margin "
+              f"{TRAIN_360_PSNR_MARGIN} dB)")
+        assert ratio < 1.0, (name, ratio)
+        assert psnr >= bg - TRAIN_360_PSNR_MARGIN, (name, psnr, bg)

@@ -180,6 +180,47 @@ def test_training_step_matches_jax(scene_type):
     assert ttr.scheduler.last_epoch == 1
 
 
+def test_training_step_with_back_prop_matches_jax():
+    """back_prop=True (the position gradient through the encode, which
+    the loss differentiates again), set on both trainers' field_cfg
+    after construction: the loss within 1e-5 relative of JAX's, every
+    field gradient within 1e-4 of its max; then one full step of each
+    trainer: the same loss, every weight within 2 lr of JAX's."""
+    jtr, ttr, batch = _trainers("synthetic")
+    jtr.field_cfg = dataclasses.replace(jtr.field_cfg, back_prop=True)
+    ttr.field_cfg = dataclasses.replace(ttr.field_cfg, back_prop=True)
+    key = jax.random.PRNGKey(5)
+    (lj, nvj), gj = jax.jit(jax.value_and_grad(
+        _jax_loss_fn(jtr, batch, key), has_aux=True))(jtr.field_params)
+    u = np.array(jax.random.uniform(key, (batch[0].shape[0],)))
+    tb = [torch.as_tensor(a) for a in batch]
+    lt, aux = ttr._loss_fn(ttr.field_params, *tb, torch.as_tensor(u))
+    lt.backward()
+    assert int(aux["num_valid"]) == int(nvj) > 500
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    last_b = f"{len(gj['decoder']['layers']) - 1}.b"
+    for (name, leaf), (_, g) in zip(_field_leaves(ttr.field_params),
+                                    _field_leaves(gj)):
+        g = np.asarray(g)
+        if name == last_b:
+            assert leaf.grad is None and not g.any()
+            continue
+        err = np.abs(leaf.grad.numpy() - g).max()
+        assert err <= 1e-4 * np.abs(g).max(), name
+        leaf.grad = None
+
+    lr = float(ttr.optimizer.param_groups[0]["lr"])
+    jfp, _, jl, jnv, _ = jtr._train_step(
+        jtr.field_params, jtr.opt_state, jtr.ngp_params, jtr.occ_state,
+        *(jnp.asarray(a) for a in batch), key)
+    tl, taux = ttr._train_step_impl(*tb, torch.as_tensor(u))
+    assert int(taux["num_valid"]) == int(jnv)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    for (name, t), (_, j) in zip(_field_leaves(ttr.field_params),
+                                 _field_leaves(_np(jfp))):
+        assert np.abs(t.detach().numpy() - j).max() <= 2.0001 * lr, name
+
+
 def test_stage2_config_matches_jax():
     """Stage2Config field for field, and the configs it derives (NGP,
     field, render), for a synthetic and a 360 scene."""

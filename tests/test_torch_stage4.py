@@ -69,15 +69,15 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def trainers(pack_slack, freeze_rf_steps=2):
+def trainers(pack_slack, freeze_rf_steps=2, **cell):
     """A JAX and a port stage-4 trainer at a small size (L4, T 2^12,
-    f32 MLPs) on the same NGP (JAX's init, table scaled by 1e4),
-    deformation field (JAX's init, table scaled by 1e3), fixture
-    occupancy and sphere mesh (radius 0.5, 0.75 in the world); their
-    prefetchers stopped."""
+    f32 MLPs; `cell` may set the layout, payload, levels and features)
+    on the same NGP (JAX's init, table scaled by 1e4), deformation field
+    (JAX's init, table scaled by 1e3), fixture occupancy and sphere mesh
+    (radius 0.5, 0.75 in the world); their prefetchers stopped."""
     kw = dict(SMALL, scene="fixture", batch_size_log2=13, max_hits=6,
               render_step_size=2e-2, freeze_rf_steps=freeze_rf_steps,
-              max_steps=100, pack_slack=pack_slack)
+              max_steps=100, pack_slack=pack_slack, **cell)
     jcfg, tcfg = jst4.Stage4Config(**kw), tst4.Stage4Config(**kw)
     verts, faces = sphere_mesh()
     occs, binaries = occupancy("synthetic", jcfg.grid_resolution,
@@ -143,8 +143,20 @@ def _rf_update_rel(before, after_t, after_j):
     return (num / den) ** 0.5
 
 
-@pytest.mark.parametrize("pack_slack", [1.25, 0.0])
-def test_trainer_steps_in_lockstep_with_jax(pack_slack):
+# the cell layout (--layout cell): run_nerfsynthetic_tpu_fast.sh's rf,
+# tet L8 F4, with its bf16factor payload and with the CLI's default f32;
+# the deformation field takes the layout and the payload at L16 F2
+_CELL = dict(layout="cell", interp="tet", n_levels=8, n_features=4)
+
+
+@pytest.mark.parametrize("pack_slack,cell", [
+    pytest.param(1.25, {}, id="1.25"),
+    pytest.param(0.0, {}, id="0.0"),
+    pytest.param(1.25, dict(_CELL, grad_payload="bf16factor"),
+                 id="cell-bf16factor"),
+    pytest.param(1.25, dict(_CELL, grad_payload="f32"), id="cell-f32"),
+])
+def test_trainer_steps_in_lockstep_with_jax(pack_slack, cell):
     """Four steps of each trainer's _train_step_impl on the same batch,
     hits and JAX noise (the twin's stratified jitter and the barycentric
     uniforms of jax.random.uniform(key, ...)), freeze_rf_steps 2. Each
@@ -155,19 +167,25 @@ def test_trainer_steps_in_lockstep_with_jax(pack_slack):
     jax.grad of that _loss_fn: every field leaf on the frozen steps and
     the first joint step, and every rf leaf on that joint step, within
     1e-4 of max (measured <= 6.5e-5); on the second joint step within
-    1e-2 as a drift bound (measured 1.3e-3: the states carry Adam's
-    first joint update, which moves tiny rf gradients by ~lr * sign(g)
-    where their signs differ). The field table within 2.0001 lr of
-    JAX's after every step (Adam's first
-    steps move an entry by ~lr * sign(g)); the rf unmoved while frozen,
+    1e-4 of jax.grad at the port's own state, and within 1e-2 of JAX's
+    at its state as a drift bound (measured 1.3e-3: the states carry
+    Adam's first joint update, which moves tiny rf gradients by
+    ~lr * sign(g) where their signs differ). In the cell layout JAX's
+    steps run eagerly: jitted, XLA's fusion moves JAX's own rf table
+    gradient at the second joint step 1.7e-2 of max from its eager
+    run's, from which the port lies 4.5e-5. The field table within
+    2.0001 lr of JAX's after every step (Adam's first steps move an
+    entry by ~lr * sign(g)); the rf unmoved while frozen,
     its Adam step count 3 at the first joint step (optax's shared count;
     torch's per-parameter count would say 1 had the frozen steps given
     no gradient, and its update would be ~1.6x JAX's), and its updates
     within 15% of JAX's in L2 (5% measured: Adam moves a tiny gradient
     by ~lr * sign(g), and the signs of some flip; the trap gives >50%);
     the per-face caches within 1e-4 of max (dh carries the field's
-    drift)."""
-    jtr, ttr, batch = trainers(pack_slack)
+    drift). The same holds in the cell layout, where the CPU routes
+    both payloads' table gradients to f32 rows, as JAX does off an
+    accelerator."""
+    jtr, ttr, batch = trainers(pack_slack, **cell)
     total, (jhit, thit) = hit_args(jtr, ttr, batch)
     assert total > 100
     o, d = batch["rays"]
@@ -183,20 +201,32 @@ def test_trainer_steps_in_lockstep_with_jax(pack_slack):
         rf_before = _np(jtr.params["rf"])
         (jl, _), jg = jax.value_and_grad(jtr._loss_fn, has_aux=True)(
             jtr.params, jtr.occ_state, *jb, jhit, key, freeze)
+        if step == 3:
+            # JAX's gradient at the port's own state, which Adam's first
+            # joint update has moved from JAX's
+            at_port = jax.tree_util.tree_map(
+                lambda t: jnp.asarray(t.detach().numpy()), ttr.params)
+            jg_port = jax.grad(jtr._loss_fn, has_aux=True)(
+                at_port, jtr.occ_state, *jb, jhit, key, freeze)[0]
         fn = jtr._train_step_frozen if freeze else jtr._train_step_joint
-        (jtr.params, jtr.opt_state, jtr.cache_d, jtr.cache_w, _, jnh,
-         _) = fn(jtr.params, jtr.opt_state, jtr.occ_state, jtr.cache_d,
-                 jtr.cache_w, *jb, jhit, key)
+        with jax.disable_jit(bool(cell)):
+            (jtr.params, jtr.opt_state, jtr.cache_d, jtr.cache_w, _, jnh,
+             _) = fn(jtr.params, jtr.opt_state, jtr.occ_state, jtr.cache_d,
+                     jtr.cache_w, *jb, jhit, key)
         lr = float(ttr.optimizer.param_groups[0]["lr"])
         tl, tnh, _ = ttr._train_step_impl(*tb, thit, t_jitter, bary,
                                           freeze_rf=freeze)
         assert int(tnh) == int(jnh) == total
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5,
                                    err_msg=f"step {step}")
-        rtol = 1e-4 if step < 3 else 1e-2
-        assert_grads_match(ttr.params["field"], jg["field"], rtol)
-        if not freeze:
-            assert_grads_match(ttr.params["rf"], jg["rf"], rtol)
+        if step < 3:
+            assert_grads_match(ttr.params["field"], jg["field"])
+            if not freeze:
+                assert_grads_match(ttr.params["rf"], jg["rf"])
+        else:
+            for part in ("field", "rf"):
+                assert_grads_match(ttr.params[part], jg_port[part])
+                assert_grads_match(ttr.params[part], jg[part], 1e-2)
         jt = np.asarray(jtr.params["field"]["table"])
         tt = ttr.params["field"]["table"].detach().numpy()
         assert np.abs(tt - jt).max() <= 2.0001 * lr, step
