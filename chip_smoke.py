@@ -14,8 +14,8 @@
         # with `git archive`) beside this one's, in turns, on the same
         # inputs
 
-Phases, run in the order 1-5, 11, 7, 8, 12, 13, 9, 10, 6 (any failure
-raises and exits non-zero):
+Phases, run in the order 1-5, 11, 7, 8, 12, 13, 9, 10, 14, 6 (any
+failure raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
      quadraturefields_tpu_torch/csrc, one nvcc per source, all at once,
      and beside them the host geometry library (g++);
@@ -194,6 +194,29 @@ raises and exits non-zero):
      phase 7's, the stream entries' time in situ, one step of each
      against the plain path, and the streams for phase 6 (each stream
      entry against index_add_ of its own stream in float64).
+ 14. data parallelism ("train_dp", "train_field_dp"): two ranks spawned
+     (torch.multiprocessing, spawn) share the card over gloo on
+     127.0.0.1 (NCCL refuses two ranks on one device; the collectives
+     cross the host), loading the kernels phase 1 built. Run 1:
+     Stage1Trainer(num_devices=2) at phase 4's Stage1Config on the same
+     views; its first DP_LOCKSTEP_STEPS steps (an occupancy refresh
+     among them) beside a single-device trainer on the same seed: the
+     same draws bit for bit, the same refreshed grid, the DP loss and
+     averaged gradients against the single-device step on the same
+     state and batch by compare_step's rule, every weight after the
+     first step within 2 lr of the single device's; then train() to
+     step 300: on each rank every step launches K1 and K4 exactly once,
+     K2 and K3 at least once and nothing else; both ranks' weights and
+     grids equal bit for bit (all-gathered sha256); the final eval PSNR
+     at least phase 4's less DP_PSNR_MARGIN. Run 2: the same for
+     Stage2Trainer(num_devices=2) from phase 7's feeder at its widths
+     (FIELD_DP_LOCKSTEP steps in lockstep, then to step FIELD_DP_STEPS).
+     Run 3 ("nccl_dp"): NCCL_STEPS steps of phase 4's configuration
+     through dp.py over NCCL with one rank, each of the first
+     NCCL_COMPARED against the single-device step (compare_step's rule).
+     ms/step of each, the first two labelled as two gloo ranks on one
+     card (not a multi-GPU speed). A rank that fails or outlasts
+     DP_JOIN_TIMEOUT_S fails the phase.
 Reduced sizes, against the scripts: the stage-1 feeder runs 300 steps at
 2^18 samples (run_nerfsynthetic.sh: 20,000 at 2^20); stage 2 runs 300
 of its 25,000 steps; the export is 256^3 (the CLI's default 1024^3);
@@ -203,7 +226,8 @@ stage 4 runs 400 of its 10,000 steps with a mesh update every 200
 steps, fall at steps 124 and 299); stage 6 prunes and evaluates on the
 same 4 views; the 360 path runs 300 of its 20,000 steps on the fixture
 views (nerf_360_v2 scenes are not in the repo); the cell stage 4 runs
-phase 8's 400 steps; the back_prop fields run 100 steps each;
+phase 8's 400 steps; the back_prop fields run 100 steps each; phase
+14's stage 2 runs 7 steps;
 the views are 4 fixture views of 256^2 (the scripts: nerf-synthetic
 chair). The field, the NGP and the 2^18 stage-2 budget run at the
 scripts' widths.
@@ -3563,6 +3587,742 @@ def stochastic_slice(torch, kernels, card, views, captured, report,
     return launches
 
 
+# phase 14's sizes: two ranks share the card (gloo, collectives through
+# the host). Stage 1 runs phase 4's 300 steps, the first
+# DP_LOCKSTEP_STEPS (step 0 refreshes the grid) in lockstep at
+# DP_LOCKSTEP_RAYS rays a step, few enough that no rank's demand reaches
+# its half of the 2^18 budget (a rank that truncates marches another
+# sample set than the single device, by design); stage 2 runs
+# FIELD_DP_STEPS + 1 steps of phase 7's field, the first
+# FIELD_DP_LOCKSTEP at FIELD_DP_LOCKSTEP_RAYS rays (then from its 1024
+# initial rays); run 3 takes NCCL_STEPS steps over NCCL with one rank
+DP_WORLD = 2
+DP_STEPS = 300
+DP_TIMED_FROM = 150
+DP_LOCKSTEP_STEPS = 3
+DP_LOCKSTEP_RAYS = 256
+FIELD_DP_STEPS = 6
+FIELD_DP_LOCKSTEP = 2
+FIELD_DP_LOCKSTEP_RAYS = 512
+NCCL_STEPS = 20
+NCCL_COMPARED = 3
+DP_COLLECTIVE_TIMEOUT_S = 240
+DP_JOIN_TIMEOUT_S = 300
+# the lockstep's gradient floors (compare_step's rule, max(8 x the
+# single-device step's own spread, floor)): with f32 MLPs and for the f32
+# field, compare_step's f32 limit; with bf16 MLPs twice its 2^-8, since
+# the cast's transpose rounds each rank's partial weight gradient to
+# bf16 before the sum, one rounding more than the single device makes
+# (the card's runs read 1.9e-3 to 4.1e-3 on the MLP leaves, one over
+# 2^-8, and a single device's reruns 0; NVIDIA H100 80GB HBM3, 700 W)
+DP_F32_FLOOR = 1e-4
+DP_BF16_FLOOR = 2**-7
+# phase 14's gate: run 1's final eval PSNR at least that of a
+# single-device run on the same draws (dp_paired_single) less this margin
+# (dB), set from the card (NVIDIA H100 80GB HBM3, 700 W): single-device
+# runs on one draw sequence spread up to 1.60 dB within one smoke (phase
+# 10's three exact runs: 32.14-33.74 dB), and two paired readings put DP
+# at +0.18 and -0.83 dB of its pair; the margin is that spread plus
+# ~0.9 dB, so a DP fault that costs ~3 dB fails it
+DP_PSNR_MARGIN = 2.5
+# the kernels whose launches a DP step must make on every rank: exactly
+# once (K1, K4) and at least once (K2, K3)
+DP_ONCE = ("hashgrid_encode_bwd", "occ_bits")
+DP_SOME = ("hashgrid_encode", "segment_sum")
+
+
+def counted_kernels():
+    """(the kernels of the JSON line, the stream entries counted beside
+    them), the same objects in every process."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+    from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
+    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
+    from quadraturefields_tpu_torch.ops import occ_bits as ob
+
+    kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
+               hg.ENCODE_BWD_KERNEL, hg.ENCODE_BWD_STOCHASTIC_KERNEL,
+               hb.TABLE_GRAD_VALUES_KERNEL,
+               hg.CELL_ROW_GRAD_X_KERNEL, hg.CELL_PAIR_GRAD_X_KERNEL,
+               hg.CELL_FACTOR_GRAD_X_KERNEL,
+               hs.TABLE_GRAD_PAIRS_KERNEL, hs.CELL_ROW_GRAD_KERNEL]
+    streams = {"cell_pair_grad_x": hs.CELL_PAIR_GRAD_KERNEL,
+               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL}
+    return kernels, streams
+
+
+def params_digest(leaves) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def grad_reading(torch, loss, grads, ref, reruns, floor) -> dict:
+    """compare_step's rule for one DP step against the single-device
+    step on the same state and batch: the loss relative, each leaf's max
+    |got - want| over its max |want|, the single-device reruns' largest
+    such spread, and the limit max(8 x spread, floor)."""
+    def rel(a, b):
+        return [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                for x, y in zip(a, b, strict=True)]
+
+    ref_loss, want = ref
+    spreads = [max(leaf) for leaf in zip(*(rel(r, want) for r in reruns))]
+    return dict(loss=loss, ref_loss=ref_loss,
+                loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+                grad_errs=rel(grads, want), spreads=spreads,
+                grad_limit=max(8 * max(spreads), floor))
+
+
+def dp_lockstep(torch, trainer, single, n_steps, step_grads, leaves_of,
+                valid_of, floor):
+    """n_steps of the DP trainer `trainer` beside the single-device
+    trainer `single` (rank 0 only; None elsewhere) on the same seed. At
+    every step rank 0 computes the single-device loss and gradients on
+    the DP trainer's own state and global batch (step_grads, with three
+    reruns for their spread) before the DP step, and reads the DP step's
+    loss and combined gradients against them (grad_reading, `floor`);
+    `single` steps on its own draws, which must equal the DP trainer's
+    bit for bit. After the first step both trainers moved from the same
+    state, so every weight must lie within 2 lr of single's. valid_of(the
+    step's output) is the valid samples summed over the ranks, which
+    must stay under one rank's budget (no rank truncates). Returns (one
+    reading per step on rank 0, the last step's global batch)."""
+    seen, readings = {}, []
+    dp_step = trainer._train_step_impl
+
+    def watched_dp_step(*batch):
+        seen["dp_batch"] = batch
+        if single is not None:
+            seen["ref"] = step_grads(torch, trainer, batch)
+            seen["reruns"] = [step_grads(torch, trainer, batch)[1]
+                              for _ in range(3)]
+        out = dp_step(*batch)
+        seen["dp_grads"] = [p.grad.detach().clone()
+                            for p in leaves_of(trainer)]
+        return out
+
+    trainer._train_step_impl = watched_dp_step
+    if single is not None:
+        single_step = single._train_step_impl
+
+        def watched_single_step(*batch):
+            seen["single_batch"] = batch
+            return single_step(*batch)
+
+        single._train_step_impl = watched_single_step
+    try:
+        for k in range(n_steps):
+            if single is not None:
+                lr = float(single.optimizer.param_groups[0]["lr"])
+            out = trainer.train_one_step()
+            loss, n_valid = float(out[0]), valid_of(out)
+            if single is None:
+                continue
+            single_loss = float(single.train_one_step()[0])
+            r = grad_reading(torch, loss, seen["dp_grads"], seen["ref"],
+                             seen["reruns"], floor)
+            same_draws = all(
+                torch.equal(a, b) for a, b in zip(
+                    seen["dp_batch"], seen["single_batch"], strict=True))
+            moved = [float((a.detach() - b.detach()).abs().max())
+                     for a, b in zip(leaves_of(trainer), leaves_of(single))]
+            r.update(step=k, single_loss=single_loss, same_draws=same_draws,
+                     lr=lr, weights_vs_single=max(moved),
+                     rays=int(seen["dp_batch"][0].shape[0]),
+                     num_valid=n_valid,
+                     budget=trainer.rcfg.max_samples_total // trainer.world)
+            if k == 0:
+                r.update(occ_reading(trainer.occ_state, single.occ_state,
+                                     single.occ_cfg.occ_thre))
+            readings.append(r)
+    finally:
+        trainer._train_step_impl = dp_step
+        if single is not None:
+            single._train_step_impl = single_step
+    return readings, seen["dp_batch"]
+
+
+def occ_reading(got, want, occ_thre) -> dict:
+    """A refreshed grid `got` against `want`: occs' largest error over
+    their max, the cells whose binary flipped, and those of them that
+    lie further than 1e-5 of max from the threshold min(mean, occ_thre)
+    (an ulp there flips a cell)."""
+    scale = want.occs.abs().max()
+    thre = want.occs.mean().clamp(max=occ_thre)
+    flipped = (got.binaries != want.binaries).reshape(-1)
+    far = (want.occs - thre).abs() > 1e-5 * scale
+    return dict(occ_err=float((got.occs - want.occs).abs().max() / scale),
+                occ_flips=int(flipped.sum()),
+                occ_flips_far=int((flipped & far).sum()))
+
+
+def dp_f32_step(torch, trainer, batch):
+    """The DP trainer's step with f32 MLPs on every rank, on its state
+    and the global `batch`, its weights untouched (SGD at lr 0 in Adam's
+    place), against the single-device step with f32 MLPs on rank 0 (as
+    compare_step's float32 case); returns the reading on rank 0."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
+
+    saved = trainer.ngp_cfg, trainer.optimizer, trainer.scheduler
+    leaves = _leaves(trainer.params)
+    ref = reruns = None
+    trainer.ngp_cfg = dataclasses.replace(saved[0], compute_dtype="float32")
+    try:
+        if trainer.rank == 0:
+            ref = ngp_step_grads(torch, trainer, batch)
+            reruns = [ngp_step_grads(torch, trainer, batch)[1]
+                      for _ in range(3)]
+        trainer.optimizer = torch.optim.SGD(leaves, lr=0.0)
+        trainer.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            trainer.optimizer, lambda k: 1.0)
+        loss, _ = trainer._train_step_impl(*batch)
+    finally:
+        trainer.ngp_cfg, trainer.optimizer, trainer.scheduler = saved
+    grads = [p.grad.detach().clone() for p in leaves]
+    for p in leaves:
+        p.grad = None
+    if trainer.rank != 0:
+        return None
+    return grad_reading(torch, float(loss), grads, ref, reruns,
+                        DP_F32_FLOOR)
+
+
+def dp_counted_run(torch, kernels, trainer, views, run):
+    """run() (the trainer's train()) with every kernel's count set to 0
+    just before and read just after; per step, the launches of each
+    kernel, the step's end time (after its loss is read, which waits for
+    it) and the samples this rank's rays asked for (its demand, read
+    after the step), which its share of the budget may truncate."""
+    per_step, demand = [], []
+    one_step, loss_fn = trainer.train_one_step, trainer._loss_fn
+
+    def watched_loss_fn(*args):
+        loss, aux = loss_fn(*args)
+        demand.append(aux["num_valid"])
+        return loss, aux
+
+    def counted_step():
+        before = {k.name: k.launches for k in kernels}
+        rays = views.num_rays
+        demand.clear()
+        out = one_step()
+        float(out[0])
+        per_step.append(dict(
+            t=time.perf_counter(), rays=rays,
+            demand=[int(n) for n in demand],
+            launches={k.name: k.launches - before[k.name] for k in kernels}))
+        return out
+
+    trainer.train_one_step = counted_step
+    trainer._loss_fn = watched_loss_fn
+    try:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        trainer.train_one_step = one_step
+        trainer._loss_fn = loss_fn
+    return result, launches, per_step, wall
+
+
+def dp_all_reduce_ms(torch, leaves, reps=5) -> float:
+    """Host ms of one all-reduce of a flat f32 buffer the size of
+    `leaves` on their device (the DP step's one gradient collective,
+    alone), the mean of `reps` after one warm-up, synchronised."""
+    import torch.distributed as dist
+
+    flat = torch.zeros(sum(p.numel() for p in leaves),
+                       device=leaves[0].device)
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.mean(times[1:]) * 1e3)
+
+
+def dp_replicas(torch, leaves) -> list:
+    """Every rank's digest of `leaves`, all-gathered."""
+    import torch.distributed as dist
+
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, params_digest(leaves))
+    return digests
+
+
+def dp_stage1_rank(torch, kernels, views, work, dev):
+    """Run 1 on this rank: Stage1Trainer(num_devices=2) at phase 4's
+    Stage1Config, the lockstep steps beside a single-device trainer
+    (rank 0) and one f32 step, then train() on to step DP_STEPS from
+    phase 4's initial rays, with the launches counted."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import (
+        Stage1Config,
+        Stage1Trainer,
+        _leaves,
+    )
+
+    views.rng = np.random.default_rng(views.seed)
+    views.update_num_rays(DP_LOCKSTEP_RAYS)
+    cfg = Stage1Config(root=os.path.join(work, "train_dp"), scene="fixture",
+                       max_steps=DP_STEPS, log_every=100,
+                       ckpt_every=10**9, num_devices=DP_WORLD)
+    trainer = Stage1Trainer(cfg, train_dataset=views, test_dataset=views,
+                            device=dev)
+    single = None
+    if trainer.rank == 0:
+        single = Stage1Trainer(
+            dataclasses.replace(cfg, num_devices=0,
+                                root=os.path.join(work, "single")),
+            train_dataset=views.upsampled(1, DP_LOCKSTEP_RAYS),
+            test_dataset=views, device=dev)
+    lockstep, batch = dp_lockstep(
+        torch, trainer, single, DP_LOCKSTEP_STEPS, ngp_step_grads,
+        lambda t: _leaves(t.params), lambda out: int(out[1]["num_valid"]),
+        DP_BF16_FLOOR)
+    f32 = dp_f32_step(torch, trainer, batch)
+    del single, batch
+    free_device_memory()
+
+    views.update_num_rays(cfg.init_batch_size)
+    metrics, launches, per_step, wall = dp_counted_run(
+        torch, kernels, trainer, views, trainer.train)
+    leaves = _leaves(trainer.params)
+    return dict(lockstep=lockstep, f32=f32, metrics=metrics,
+                launches=launches, per_step=per_step, wall=wall,
+                budget=trainer.rcfg.max_samples_total // trainer.world,
+                digests=dp_replicas(torch, leaves + [trainer.occ_state.occs]),
+                all_reduce_ms=dp_all_reduce_ms(torch, leaves),
+                occupied=float(trainer.occ_state.binaries.float().mean()))
+
+
+def dp_stage2_rank(torch, kernels, views, work, ckpt, dev):
+    """Run 2 on this rank: Stage2Trainer(num_devices=2) at phase 7's
+    widths from its feeder checkpoint, the lockstep steps (the batch held
+    at FIELD_DP_LOCKSTEP_RAYS) beside a single-device trainer (rank 0),
+    then train() on to step FIELD_DP_STEPS from the config's 1024
+    initial rays, with the launches counted."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
+    from quadraturefields_tpu_torch.train.stage2_field import (
+        Stage2Config,
+        Stage2Trainer,
+    )
+
+    views.rng = np.random.default_rng(views.seed)
+    cfg = Stage2Config(root=os.path.join(work, "train_field_dp"),
+                       scene="fixture", ckpt_path=ckpt,
+                       max_steps=FIELD_DP_STEPS, log_every=10**9,
+                       ckpt_every=10**9, export_grids=False,
+                       num_devices=DP_WORLD, **STAGE2_FLAGS)
+    views.update_num_rays(FIELD_DP_LOCKSTEP_RAYS)
+    held = dataclasses.replace(cfg, max_num_rays=FIELD_DP_LOCKSTEP_RAYS)
+    trainer = Stage2Trainer(held, train_dataset=views, device=dev)
+    single = None
+    if trainer.rank == 0:
+        single = Stage2Trainer(
+            dataclasses.replace(held, num_devices=0,
+                                root=os.path.join(work, "single")),
+            train_dataset=views.upsampled(1, FIELD_DP_LOCKSTEP_RAYS),
+            device=dev)
+
+    lockstep, _ = dp_lockstep(
+        torch, trainer, single, FIELD_DP_LOCKSTEP, field_step_grads,
+        lambda t: _leaves(t.field_params), lambda out: int(out[1]),
+        DP_F32_FLOOR)
+    del single
+    free_device_memory()
+
+    # the batch starts at the config's and grows, as in phase 7
+    trainer.cfg = cfg
+    views.update_num_rays(cfg.init_batch_size)
+    _, launches, per_step, wall = dp_counted_run(
+        torch, kernels, trainer, views, trainer.train)
+    leaves = _leaves(trainer.field_params)
+    return dict(lockstep=lockstep, launches=launches, per_step=per_step,
+                wall=wall, digests=dp_replicas(torch, leaves),
+                budget=trainer.rcfg.max_samples_total // trainer.world,
+                all_reduce_ms=dp_all_reduce_ms(torch, leaves))
+
+
+def dp_rank(rank, world, port, work, views, ckpt, device):
+    """One rank of phase 14 (a process of its own, spawned): joins the
+    gloo group on 127.0.0.1, loads the kernels the parent built, runs
+    runs 1 and 2 on `device` (the ranks share the card) and saves its
+    readings to work/rank<rank>.pt; a failure leaves its traceback in
+    work/rank<rank>.err and a non-zero exit."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=DP_COLLECTIVE_TIMEOUT_S))
+        kernels, streams = counted_kernels()
+        kernels = kernels + list(streams.values())
+        for k in kernels:
+            k.load()
+        dev = torch.device(device)
+        out = dict(stage1=dp_stage1_rank(torch, kernels, views, work, dev))
+        out["stage2"] = dp_stage2_rank(torch, kernels, views, work, ckpt,
+                                       dev)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dp_paired_single(views, work):
+    """Run 1's pair: the single-device trainer at run 1's config and
+    seed on run 1's draws (the views reseeded, DP_LOCKSTEP_STEPS steps
+    at DP_LOCKSTEP_RAYS rays, then train() to DP_STEPS from the initial
+    rays), as the DP trainer draws them; returns its final eval PSNR."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import (
+        Stage1Config,
+        Stage1Trainer,
+    )
+
+    views.rng = np.random.default_rng(views.seed)
+    views.update_num_rays(DP_LOCKSTEP_RAYS)
+    cfg = Stage1Config(root=os.path.join(work, "paired"), scene="fixture",
+                       max_steps=DP_STEPS, log_every=10**9,
+                       ckpt_every=10**9)
+    trainer = Stage1Trainer(cfg, train_dataset=views, test_dataset=views)
+    for _ in range(DP_LOCKSTEP_STEPS):
+        trainer.train_one_step()
+    views.update_num_rays(cfg.init_batch_size)
+    psnr = trainer.train(log_fn=lambda line: None)["psnr"]
+    del trainer
+    free_device_memory()
+    return psnr
+
+
+def dp_truncation(outs, late_from: int) -> list:
+    """Per rank, over the counted steps: the steps whose demand (the
+    samples the rank's rays asked for) overran the rank's budget, those
+    of them from counted step `late_from` on, the largest and the mean
+    demand over the budget."""
+    out = []
+    for o in outs:
+        ratios = [s["demand"][0] / o["budget"] for s in o["per_step"]]
+        out.append(dict(truncated=sum(r > 1.0 for r in ratios),
+                        late=sum(r > 1.0 for r in ratios[late_from:]),
+                        steps=len(ratios), max=max(ratios),
+                        mean=float(np.mean(ratios))))
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def print_grad_reading(label, r):
+    print(f"{label}: DP loss {r['loss']} vs the single-device step on the "
+          f"same state {r['ref_loss']} (relative {r['loss_rel']:.3e}, limit "
+          f"1e-5); gradient error / max |grad| per leaf {r['grad_errs']} "
+          f"(limit {r['grad_limit']:.3e}; the single-device step vs itself "
+          f"{r['spreads']})")
+
+
+def grad_reading_holds(r) -> bool:
+    return (r["loss_rel"] <= 1e-5
+            and all(e <= r["grad_limit"] for e in r["grad_errs"]))
+
+
+def dp_lockstep_failures(name, readings) -> list:
+    """Prints rank 0's lockstep readings; returns the gates they fail."""
+    failed = []
+    for r in readings:
+        print_grad_reading(f"{name} lockstep step {r['step']} ({r['rays']} "
+                           f"rays)", r)
+        print(f"  the single-device trainer's own step: loss "
+              f"{r['single_loss']}, same draws {r['same_draws']}, weights "
+              f"within {r['weights_vs_single']:.3e} of the DP trainer's (lr "
+              f"{r['lr']:.3e}); valid samples over the ranks "
+              f"{r['num_valid']} (one rank's budget {r['budget']})"
+              + (f"; occupancy refresh: occs within {r['occ_err']:.3e} of "
+                 f"max, {r['occ_flips']} cells flipped, "
+                 f"{r['occ_flips_far']} of them further than 1e-5 of max "
+                 f"from the threshold" if "occ_flips" in r else ""))
+        step = f"{name} lockstep step {r['step']}"
+        if not r["same_draws"]:
+            failed.append(f"{step}: the DP trainer drew another batch")
+        if r["num_valid"] >= r["budget"]:
+            failed.append(f"{step}: a rank may have truncated its samples")
+        if not grad_reading_holds(r):
+            failed.append(f"{step}: the DP loss or gradients disagree")
+        if r["step"] == 0 and (r["occ_flips_far"] or r["occ_err"] > 1e-5):
+            failed.append(f"{step}: the DP occupancy refresh disagrees")
+    # Adam's first update moves a weight by at most lr
+    first = readings[0]
+    if first["weights_vs_single"] > 2.0001 * first["lr"]:
+        failed.append(f"{name}: the weights after the first DP step are "
+                      f"{first['weights_vs_single']} from the single "
+                      f"device's")
+    return failed
+
+
+def dp_launch_failures(name, outs, n_steps) -> list:
+    """The gates on every rank's per-step launches: K1 and K4 exactly
+    once, K2 and K3 at least once, no other kernel."""
+    failed = []
+    for rank, o in enumerate(outs):
+        steps = o["per_step"]
+        if len(steps) != n_steps:
+            failed.append(f"{name} rank {rank}: {len(steps)} steps, not "
+                          f"{n_steps}")
+        for i, s in enumerate(steps):
+            n = s["launches"]
+            others = {k: v for k, v in n.items()
+                      if k not in DP_ONCE + DP_SOME and v}
+            if (any(n[k] != 1 for k in DP_ONCE)
+                    or any(n[k] < 1 for k in DP_SOME) or others):
+                failed.append(f"{name} rank {rank}, counted step {i}: {n}")
+    return failed
+
+
+def dp_slice(torch, kernels, card, views, report, phase4, ckpt7):
+    """Phase 14: data parallelism over two gloo ranks that share the
+    card (runs 1 and 2, spawned), then one NCCL rank (run 3, here).
+    Prints every reading, then fails on any gate. Fills
+    report["train_dp"], ["train_field_dp"] and ["nccl_dp"]; returns the
+    launches of the two spawned paths, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    free_device_memory()
+    work = tempfile.mkdtemp(prefix="qf_smoke_dp_")
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dp_rank, args=(r, DP_WORLD, port, work,
+                                               views, ckpt7, "cuda:0"))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    spawn_s = time.perf_counter() - t0
+    print(f"phase 14 runs 1 and 2: two ranks spawned, run and joined in "
+          f"{spawn_s:.1f} s; exit codes {codes}")
+    for r in range(DP_WORLD):
+        err = Path(work, f"rank{r}.err")
+        if err.exists():
+            print(f"phase 14 rank {r} failed:\n{err.read_text()}",
+                  file=sys.stderr)
+    check(not hung, f"ranks {hung} did not finish in {DP_JOIN_TIMEOUT_S} s")
+    check(codes == [0] * DP_WORLD, f"the ranks exited with {codes}")
+    outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+    label = "two gloo ranks on one card, collectives through the host"
+    failed = []
+
+    # run 1: stage 1 at the trainer defaults
+    s1 = [o["stage1"] for o in outs]
+    failed += dp_lockstep_failures("train_dp", s1[0]["lockstep"])
+    print_grad_reading("train_dp, one step with f32 MLPs", s1[0]["f32"])
+    if not grad_reading_holds(s1[0]["f32"]):
+        failed.append("train_dp: the f32 DP step disagrees")
+    failed += dp_launch_failures("train_dp", s1,
+                                 DP_STEPS + 1 - DP_LOCKSTEP_STEPS)
+    if len({d for o in s1 for d in o["digests"]}) != 1:
+        failed.append(f"train_dp: the ranks' weights differ: "
+                      f"{s1[0]['digests']}")
+    psnr, psnr4 = s1[0]["metrics"]["psnr"], phase4["metrics"]["psnr"]
+    t0 = time.perf_counter()
+    paired = dp_paired_single(views, work)
+    paired_s = time.perf_counter() - t0
+    if psnr < paired - DP_PSNR_MARGIN:
+        failed.append(f"train_dp: eval PSNR {psnr} < the paired single "
+                      f"device's {paired} less {DP_PSNR_MARGIN}")
+    first = DP_TIMED_FROM - DP_LOCKSTEP_STEPS
+    trunc = dp_truncation(s1, first)
+    print(f"train_dp: each rank's demand against its budget of "
+          f"{s1[0]['budget']} samples over the counted steps: "
+          + "; ".join(f"rank {r}: overran in {t['truncated']} of "
+                      f"{t['steps']} steps ({t['late']} of them from step "
+                      f"{DP_TIMED_FROM}), demand / budget max "
+                      f"{t['max']:.4f}, mean {t['mean']:.4f}"
+                      for r, t in enumerate(trunc)))
+    steps = s1[0]["per_step"]
+    n_win = len(steps) - 1 - first
+    ms1 = (steps[-1]["t"] - steps[first]["t"]) / n_win * 1e3
+    rays1 = sum(s["rays"] for s in steps[first + 1:])
+    print(f"train_dp: {len(steps)} counted steps + final evaluate in "
+          f"{s1[0]['wall']:.2f} s; eval {s1[0]['metrics']}; final PSNR "
+          f"{psnr:.4f} dB against the paired single-device run's "
+          f"{paired:.4f} on the same draws ({paired_s:.1f} s; must be >= "
+          f"{paired - DP_PSNR_MARGIN:.4f}) and phase 4's {psnr4:.4f} "
+          f"(other draws); occupied cells "
+          f"{s1[0]['occupied']:.4f}; launches rank 0 {s1[0]['launches']}, "
+          f"rank 1 {s1[1]['launches']}; weights and grid digests "
+          f"{[d[:16] for d in s1[0]['digests']]}")
+    print(f"train_dp, steps {DP_TIMED_FROM}-{DP_STEPS}: {ms1:.3f} ms/step, "
+          f"{rays1 / (ms1 * n_win) * 1e3:.1f} rays/s (phase 4 on one "
+          f"device: {phase4['ms_step']:.3f} ms/step); the step's gradient "
+          f"all-reduce alone {s1[0]['all_reduce_ms']:.3f} ms [{label}] "
+          f"[{card}]")
+
+    # run 2: stage 2 at phase 7's widths
+    s2 = [o["stage2"] for o in outs]
+    failed += dp_lockstep_failures("train_field_dp", s2[0]["lockstep"])
+    failed += dp_launch_failures("train_field_dp", s2,
+                                 FIELD_DP_STEPS + 1 - FIELD_DP_LOCKSTEP)
+    if len({d for o in s2 for d in o["digests"]}) != 1:
+        failed.append(f"train_field_dp: the ranks' fields differ: "
+                      f"{s2[0]['digests']}")
+    steps2 = s2[0]["per_step"]
+    ms2 = (steps2[-1]["t"] - steps2[0]["t"]) / (len(steps2) - 1) * 1e3
+    trunc2 = dp_truncation(s2, 0)
+    print(f"train_field_dp: each rank's demand against its budget of "
+          f"{s2[0]['budget']} samples: "
+          + "; ".join(f"rank {r}: overran in {t['truncated']} of "
+                      f"{t['steps']} steps, max {t['max']:.4f}"
+                      for r, t in enumerate(trunc2)))
+    print(f"train_field_dp: {len(steps2)} counted steps + binaries + "
+          f"checkpoint in {s2[0]['wall']:.2f} s; launches rank 0 "
+          f"{s2[0]['launches']}, rank 1 {s2[1]['launches']}; rays a step "
+          f"{[s['rays'] for s in steps2]}; field digests "
+          f"{[d[:16] for d in s2[0]['digests']]}; the last "
+          f"{len(steps2) - 1} steps {ms2:.3f} ms/step (phase 7 on one "
+          f"device: {report['train_field']['ms_per_step']:.3f} ms/step); "
+          f"the step's gradient all-reduce alone "
+          f"{s2[0]['all_reduce_ms']:.3f} ms [{label}] [{card}]")
+
+    report["train_dp"] = dict(
+        lockstep=s1[0]["lockstep"], f32=s1[0]["f32"], psnr=psnr,
+        paired_psnr=paired, phase4_psnr=psnr4, psnr_margin=DP_PSNR_MARGIN,
+        truncation=trunc, ms_per_step=ms1,
+        all_reduce_ms=s1[0]["all_reduce_ms"], label=label,
+        launches=[o["launches"] for o in s1], card=card)
+    report["train_field_dp"] = dict(
+        lockstep=s2[0]["lockstep"], truncation=trunc2,
+        ms_per_step=ms2,
+        all_reduce_ms=s2[0]["all_reduce_ms"],
+        rays=[s["rays"] for s in steps2], label=label,
+        launches=[o["launches"] for o in s2], card=card)
+    report["dp_spawn_s"] = spawn_s
+    report["nccl_dp"], nccl_failed = nccl_slice(torch, views, card)
+    failed += nccl_failed
+    check(not failed, "phase 14: " + "; ".join(failed))
+    return ({k: sum(o["launches"][k] for o in s1) for k in s1[0]["launches"]},
+            {k: sum(o["launches"][k] for o in s2) for k in s2[0]["launches"]})
+
+
+def nccl_slice(torch, views, card):
+    """Phase 14's run 3: NCCL_STEPS steps of phase 4's configuration
+    through Stage1Trainer's DP path (its step and occupancy refresh) over
+    an NCCL group of one rank, the one NCCL path a one-card host can run.
+    It joins as a torchrun rank does (multihost.init_distributed, the
+    code maybe_initialize_distributed runs for the CLIs, from RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT; the trainer on
+    rank_device("cuda")), and each of the first NCCL_COMPARED steps is
+    held against the single-device step on the same state and batch by
+    compare_step's rule (bf16 MLPs: max(8 x spread, 2^-8), one rank
+    making the single device's roundings). Returns (its readings, the
+    gates they fail)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from quadraturefields_tpu_torch.parallel.multihost import (
+        init_distributed,
+        rank_device,
+    )
+    from quadraturefields_tpu_torch.train.stage1_ngp import (
+        Stage1Config,
+        Stage1Trainer,
+        _leaves,
+    )
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_distributed("nccl", timeout=datetime.timedelta(
+            seconds=DP_COLLECTIVE_TIMEOUT_S))
+        device = rank_device("cuda")
+        views.rng = np.random.default_rng(views.seed)
+        cfg = Stage1Config(root=tempfile.mkdtemp(prefix="qf_smoke_"),
+                           scene="fixture", max_steps=DP_STEPS)
+        views.update_num_rays(cfg.init_batch_size)
+        tr = Stage1Trainer(cfg, train_dataset=views, test_dataset=views,
+                           device=device)
+        # the DP path over the group of one rank (num_devices > 1 asks
+        # for a group of that size)
+        tr._dp, tr.world, tr.rank = True, 1, 0
+        step_impl, seen = tr._train_step_impl, {}
+
+        def watched_step(*batch):
+            if tr.step < NCCL_COMPARED:
+                seen["ref"] = ngp_step_grads(torch, tr, batch)
+                seen["reruns"] = [ngp_step_grads(torch, tr, batch)[1]
+                                  for _ in range(3)]
+            return step_impl(*batch)
+
+        tr._train_step_impl = watched_step
+        readings, times = [], []
+        for step in range(NCCL_STEPS):
+            loss = float(tr.train_one_step()[0])
+            times.append(time.perf_counter())
+            if step < NCCL_COMPARED:
+                r = grad_reading(torch, loss,
+                                 [p.grad for p in _leaves(tr.params)],
+                                 seen["ref"], seen["reruns"], 2**-8)
+                r["step"] = step
+                readings.append(r)
+        n_win = NCCL_STEPS - 1 - NCCL_COMPARED
+        ms = (times[-1] - times[NCCL_COMPARED]) / n_win * 1e3
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    failed = []
+    for r in readings:
+        print_grad_reading(f"nccl_dp step {r['step']}", r)
+        if not grad_reading_holds(r):
+            failed.append(f"nccl_dp step {r['step']}: the DP loss or "
+                          f"gradients disagree")
+    print(f"nccl_dp: {NCCL_STEPS} steps over NCCL with one rank on "
+          f"{device}, steps {NCCL_COMPARED + 1}-{NCCL_STEPS - 1}: "
+          f"{ms:.3f} ms/step [one NCCL rank] [{card}]")
+    return dict(readings=readings, ms_per_step=ms, card=card), failed
+
+
 def time_captured(torch, report, captured, card, baseline=None):
     """Phase 6: K2, K1, K5, K6, K7 and K8 on the inputs that the main
     paths gave them (captured in phases 3-5 and 7-9), against their plain
@@ -3884,9 +4644,6 @@ def main() -> int:
         build as build_qfgeom,
     )
     from quadraturefields_tpu_torch.ops import hashgrid as hg
-    from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
-    from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
-    from quadraturefields_tpu_torch.ops import occ_bits as ob
 
     args = sys.argv[1:]
     profile = "--profile" in args
@@ -3897,14 +4654,7 @@ def main() -> int:
     # stream entry, K6 and K7 their fused entries, K8 its one-launch
     # interface); K6's and K7's stream entries are counted too, and must
     # stay off the paths
-    kernels = [hg.ENCODE_KERNEL, ob.BITS_KERNEL, hs.SEGMENT_SUM_KERNEL,
-               hg.ENCODE_BWD_KERNEL, hg.ENCODE_BWD_STOCHASTIC_KERNEL,
-               hb.TABLE_GRAD_VALUES_KERNEL,
-               hg.CELL_ROW_GRAD_X_KERNEL, hg.CELL_PAIR_GRAD_X_KERNEL,
-               hg.CELL_FACTOR_GRAD_X_KERNEL,
-               hs.TABLE_GRAD_PAIRS_KERNEL, hs.CELL_ROW_GRAD_KERNEL]
-    streams = {"cell_pair_grad_x": hs.CELL_PAIR_GRAD_KERNEL,
-               "cell_factor_grad": hs.CELL_FACTOR_GRAD_KERNEL}
+    kernels, streams = counted_kernels()
     counted = kernels + list(streams.values())
     libraries = sorted({k.library for k in counted})
     jobs = [partial(build, lib) for lib in libraries]
@@ -4048,6 +4798,11 @@ def main() -> int:
     stochastic_launches = stochastic_slice(
         torch, counted, card, views, captured, report, profile, phase4)
 
+    # phase 14: data parallelism, stages 1 and 2 over two gloo ranks on
+    # the card, then one NCCL rank
+    dp_launches, field_dp_launches = dp_slice(
+        torch, counted, card, views, report, phase4, ckpt7)
+
     time_captured(torch, report, captured, card, baseline)
     time_segment_sums(torch, report, captured, card, baseline)
 
@@ -4065,7 +4820,8 @@ def main() -> int:
              "train_stochastic": stochastic_launches,
              "train_360": train_360_launches,
              "train_finetune_cell": finetune_cell_launches,
-             "field_back_prop": back_prop_launches}
+             "field_back_prop": back_prop_launches,
+             "train_dp": dp_launches, "train_field_dp": field_dp_launches}
     for name, stream in streams.items():
         report[name]["stream"]["launches_by_path"] = {
             p: n[stream.name] for p, n in paths.items()}
@@ -4080,6 +4836,9 @@ def main() -> int:
                      default=float))
     print(json.dumps({k: report[k] for k in (
         "train_360", "train_finetune_cell", "field_back_prop")},
+        default=float))
+    print(json.dumps({k: report[k] for k in (
+        "train_dp", "train_field_dp", "nccl_dp", "dp_spawn_s")},
         default=float))
     print(card)
     print(json.dumps({"kernels": [

@@ -6,13 +6,18 @@ examples/train_field.py), with the JAX CLI's flags.
 
 `--ckpt_path` is a stage-1 checkpoint the port wrote
 (`Stage1Trainer.save`, e.g. the stage-1 CLI's ngp.pt). Runs on the CUDA
-card unless main() is given another device; `--num_devices` > 1 (data
-parallelism) is not ported yet and raises.
+card unless main() is given another device. Data parallelism is one
+process per rank, each on its own card, over NCCL (gloo on the CPU):
+    torchrun --nproc_per_node N -m quadraturefields_tpu_torch.cli.train_field \
+        --num_devices N --ckpt_path ...
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
+from ..parallel.multihost import maybe_initialize_distributed
 from ..train.stage2_field import Stage2Config, Stage2Trainer
 
 
@@ -50,15 +55,19 @@ def build_parser():
                    choices=["f32", "bf16pair", "bf16sim", "bf16factor"],
                    help="cell table-gradient precision (hashgrid.py)")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="ray-batch data parallelism over the first N "
-                        "devices (0/1 = single device; not ported yet)")
+                   help="ray-batch data parallelism over N ranks, one "
+                        "process each (0/1 = single device; launch with "
+                        "torchrun --nproc_per_node N; parallel/dp.py)")
     return p
 
 
 def main(argv=None, device: str = "cuda"):
     args = build_parser().parse_args(argv)
     if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError("data parallelism is not ported yet")
+        # join the torchrun launch's process group (a no-op without one;
+        # the trainer then refuses num_devices)
+        maybe_initialize_distributed(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
     cfg = Stage2Config(
         interp=args.interp,
         grad_mode=args.grad_mode,

@@ -9,13 +9,18 @@ scripts/run_nerfsynthetic_tpu_fast.sh's flags (--layout cell
 --grad_payload bf16factor --n_levels 8 --n_features 4 --num_lobes 0
 --batch_size 20 ...) train the cell layout, whose table gradient is the
 K7 kernel on the card. Training runs on the CUDA card;
-`main(argv, device="cpu")` runs it on the CPU. Data parallelism
-(--num_devices > 1) is not ported yet.
+`main(argv, device="cpu")` runs it on the CPU. Data parallelism is one
+process per rank, each on its own card, over NCCL (gloo on the CPU):
+  torchrun --nproc_per_node N -m quadraturefields_tpu_torch.cli.train_ngp \
+      --num_devices N ...
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
+from ..parallel.multihost import maybe_initialize_distributed
 from ..train.stage1_ngp import Stage1Config, Stage1Trainer
 
 
@@ -69,17 +74,19 @@ def build_parser():
     p.add_argument("--data_factor", type=int, default=4,
                    help="360 loader image downsample factor")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="ray-batch data parallelism over the first N "
-                        "devices (0/1 = single device; parallel/dp.py "
-                        "shard_map step + sharded occ refresh over a "
-                        "1-D mesh)")
+                   help="ray-batch data parallelism over N ranks, one "
+                        "process each (0/1 = single device; launch with "
+                        "torchrun --nproc_per_node N; parallel/dp.py)")
     return p
 
 
 def main(argv=None, device: str = "cuda"):
     args = build_parser().parse_args(argv)
     if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError("data parallelism is not ported yet")
+        # join the torchrun launch's process group (a no-op without one;
+        # the trainer then refuses num_devices)
+        maybe_initialize_distributed(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
     cfg = Stage1Config(
         interp=args.interp,
         grad_mode=args.grad_mode,

@@ -1,7 +1,8 @@
 """Stage 1: train the NGP radiance field with an occupancy grid.
 
 Port of quadraturefields_tpu/train/stage1_ngp.py: `Stage1Config` field
-for field, and `Stage1Trainer` on one device. A training step renders
+for field, and `Stage1Trainer` on one device or, with num_devices > 1,
+over torch.distributed ranks (parallel/dp.py). A training step renders
 the ray batch with the stratified occupancy-grid march, takes the
 smooth-L1 + regularizer loss, backpropagates (the hash-table gradient is
 a CUDA kernel on the card) and steps Adam with the reference schedule;
@@ -37,6 +38,20 @@ from ..ops.grid import (
     occ_grid_update,
     resolve_coarse_stride,
 )
+from ..parallel.dp import (
+    allreduce_grads,
+    broadcast_params,
+    local_rcfg,
+    make_dp_occ_eval,
+    psum_count,
+)
+from ..parallel.multihost import (
+    broadcast_object,
+    on_rank0,
+    rank_device,
+    shard_batch,
+    world_and_rank,
+)
 from ..render.renderer import (
     RenderConfig,
     make_test_renderer,
@@ -57,9 +72,9 @@ MIPNERF360_UNBOUNDED_SCENES = (
 @dataclasses.dataclass
 class Stage1Config:
     """The JAX trainer's config, field for field, so configs carry over.
-    `data_sharding` and `num_devices` (data parallelism) are not ported
-    yet; the trainer refuses them. On the cell layout grad_mode
-    "stochastic" is "exact", as in JAX."""
+    `num_devices` > 1 trains over that many torch.distributed ranks
+    (parallel/dp.py); `data_sharding`, a JAX sharding, is refused. On the
+    cell layout grad_mode "stochastic" is "exact", as in JAX."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -248,12 +263,28 @@ def _as_leaf_params(tree):
 
 
 class Stage1Trainer:
-    """The stage-1 trainer on one device."""
+    """The stage-1 trainer on one device, or with cfg.num_devices > 1 on
+    each rank of a torch.distributed group of that size: every rank
+    holds the parameters, steps on its slice of the global batch
+    (parallel/dp.py) and refreshes the occupancy grid with the ranks;
+    rank 0 alone writes files and evaluates. In that mode a device
+    "cuda" without an index is cuda:LOCAL_RANK."""
 
     def __init__(self, cfg: Stage1Config, train_dataset=None,
                  test_dataset=None, device="cuda"):
-        if cfg.num_devices > 1 or cfg.data_sharding is not None:
-            raise NotImplementedError("data parallelism is not ported yet")
+        if cfg.data_sharding is not None:
+            raise NotImplementedError(
+                "data_sharding is a JAX sharding: the port shards the ray "
+                "batch over torch.distributed ranks with num_devices")
+        self._dp = bool(cfg.num_devices and cfg.num_devices > 1)
+        if self._dp:
+            if cfg.reg_type != "occ":
+                raise NotImplementedError(
+                    "DP stage-1 supports the shipped occ regularizer")
+            self.world, self.rank = world_and_rank(cfg.num_devices)
+            device = rank_device(device)
+        else:
+            self.world, self.rank = 1, 0
         # full-f32 matmuls and convolutions: the bf16-operand MLP keeps
         # f32 products (ops/mlp.py) and SSIM needs f32 variances
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -308,6 +339,8 @@ class Stage1Trainer:
         self._make_optimizer()
         self.occ_state = occ_grid_init(self.aabb, self.occ_cfg, self.device)
         self._window_render = None  # built on the first windowed eval
+        if self._dp:
+            broadcast_params(_leaves(self.params))
 
     def _make_optimizer(self):
         """A fresh Adam over self.params, its schedule continuing from
@@ -318,10 +351,14 @@ class Stage1Trainer:
 
     # ---- the training step ----
     def _occ_update_impl(self, step: int) -> OccGridState:
+        """The occupancy refresh; over ranks each evaluates its slice of
+        the points and every rank gets the same state."""
         def occ_eval_fn(x):
             d = ngp_query_density(self.params, x, self.aabb, self.ngp_cfg)
             return d[..., 0] * self.rcfg.render_step_size
 
+        if self._dp:
+            occ_eval_fn = make_dp_occ_eval(occ_eval_fn)
         with torch.no_grad():
             return occ_grid_update(
                 self.occ_state, step, occ_eval_fn, self.occ_cfg,
@@ -330,12 +367,14 @@ class Stage1Trainer:
             )
 
     def _loss_fn(self, params, occ_state, origins, viewdirs, pixels, bkgd,
-                 t_jitter):
+                 t_jitter, rcfg=None):
         """(loss, aux) of one batch; t_jitter [n_rays] are the stratified
-        march's uniforms."""
+        march's uniforms, rcfg the render config (the trainer's unless
+        given: a rank's share of the sample budget)."""
         result = render_rays_occgrid(
             params, self.aabb, self.ngp_cfg, occ_state, origins, viewdirs,
-            self.rcfg, render_bkgd=bkgd, stratified=True, t_jitter=t_jitter,
+            rcfg or self.rcfg, render_bkgd=bkgd, stratified=True,
+            t_jitter=t_jitter,
         )
         rgb_loss = smooth_l1_loss(result.rgb, pixels)
         acc = result.opacity[:, 0]
@@ -351,14 +390,32 @@ class Stage1Trainer:
 
     def _train_step_impl(self, origins, viewdirs, pixels, bkgd, t_jitter):
         """Loss, backward and one Adam update (the schedule steps after
-        it); returns (loss, aux)."""
+        it); returns (loss, aux). Over ranks the rank steps on its slice
+        of the global batch (t_jitter drawn at the global shape) with
+        its share of the budget; the loss, aux's losses and the
+        gradients are averaged over the ranks (pmean, JAX dp.py:107-112)
+        and num_valid summed before Adam."""
         self.optimizer.zero_grad(set_to_none=True)
+        rcfg = self.rcfg
+        if self._dp:
+            origins, viewdirs, pixels, t_jitter = shard_batch(
+                (origins, viewdirs, pixels, t_jitter), self.world, self.rank)
+            rcfg = local_rcfg(rcfg, self.world)
         loss, aux = self._loss_fn(self.params, self.occ_state, origins,
-                                  viewdirs, pixels, bkgd, t_jitter)
+                                  viewdirs, pixels, bkgd, t_jitter, rcfg)
         loss.backward()
+        loss = loss.detach()
+        if self._dp:
+            keys = ("rgb_loss", "reg", "mse")
+            means = allreduce_grads(
+                _leaves(self.params), 1.0 / self.world,
+                torch.stack([loss, *(aux[k] for k in keys)]) / self.world)
+            loss = means[0]
+            aux.update(zip(keys, means[1:]))
+            aux["num_valid"] = psum_count(aux["num_valid"])
         self.optimizer.step()
         self.scheduler.step()
-        return loss.detach(), aux
+        return loss, aux
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -374,6 +431,8 @@ class Stage1Trainer:
         viewdirs = self._to_device(data["rays"].viewdirs)
         pixels = self._to_device(data["pixels"])
         bkgd = self._to_device(data["color_bkgd"])
+        # drawn at the global batch's shape on every rank, so that the
+        # ranks' generators stay in one state
         t_jitter = torch.rand((origins.shape[0],), generator=self.generator,
                               device=self.device)
         loss, aux = self._train_step_impl(origins, viewdirs, pixels, bkgd,
@@ -390,13 +449,9 @@ class Stage1Trainer:
         self.step += 1
         return loss, aux
 
-    def train(self, log_fn=print):
-        """Steps 0..max_steps with logging and checkpoints, then the
-        final evaluate; writes args.json and log.json under
-        root/results/<scene>/<exp_name>."""
+    def _start_logs(self, out_dir, ckpt_dir):
+        """The run's directories, args.json and its ExperimentLogger."""
         cfg = self.cfg
-        out_dir = os.path.join(cfg.root, "results", cfg.scene, cfg.exp_name)
-        ckpt_dir = os.path.join(cfg.root, "ckpts", cfg.scene, cfg.exp_name)
         os.makedirs(out_dir, exist_ok=True)
         os.makedirs(ckpt_dir, exist_ok=True)
         with open(os.path.join(out_dir, "args.json"), "w") as f:
@@ -408,10 +463,20 @@ class Stage1Trainer:
 
         from ..utils.logging import ExperimentLogger
 
-        logger = ExperimentLogger(
+        return ExperimentLogger(
             os.path.join(cfg.root, "logs", cfg.scene, cfg.exp_name),
             results_dir=out_dir,
         )
+
+    def train(self, log_fn=print):
+        """Steps 0..max_steps with logging and checkpoints, then the
+        final evaluate; writes args.json and log.json under
+        root/results/<scene>/<exp_name>. Over ranks, rank 0 alone logs,
+        writes and evaluates, and every rank returns its metrics."""
+        cfg = self.cfg
+        out_dir = os.path.join(cfg.root, "results", cfg.scene, cfg.exp_name)
+        ckpt_dir = os.path.join(cfg.root, "ckpts", cfg.scene, cfg.exp_name)
+        logger = on_rank0(self._dp, self._start_logs, out_dir, ckpt_dir)
         tic = time.time()
         rays_done = 0
         while self.step <= cfg.max_steps:
@@ -419,7 +484,7 @@ class Stage1Trainer:
             loss, aux = self.train_one_step()
             rays_done += self.train_dataset.num_rays
 
-            if step % cfg.log_every == 0:
+            if step % cfg.log_every == 0 and self.rank == 0:
                 train_psnr = -10.0 * float(torch.log10(aux["mse"]))
                 elapsed = time.time() - tic
                 logger.add_scalar("train/loss", float(loss), step)
@@ -434,13 +499,20 @@ class Stage1Trainer:
                     f"rays/s={rays_done / max(elapsed, 1e-9):.0f}"
                 )
             if step > 0 and step % cfg.ckpt_every == 0:
-                self.save(os.path.join(ckpt_dir, "ngp.pt"))
-        metrics = self.evaluate(out_dir)
-        logger.add_scalar("test/psnr", metrics["psnr"], self.step)
-        logger.add_scalar("test/ssim", metrics["ssim"], self.step)
-        logger.close()
-        with open(os.path.join(out_dir, "log.json"), "a") as f:
-            json.dump({"step": self.step - 1, **metrics}, f)
+                on_rank0(self._dp, self.save,
+                         os.path.join(ckpt_dir, "ngp.pt"))
+        # rank 0 evaluates; the others receive its metrics
+        metrics = broadcast_object(on_rank0(self._dp, self.evaluate, out_dir),
+                                   self._dp)
+
+        def close_logs():
+            logger.add_scalar("test/psnr", metrics["psnr"], self.step)
+            logger.add_scalar("test/ssim", metrics["ssim"], self.step)
+            logger.close()
+            with open(os.path.join(out_dir, "log.json"), "a") as f:
+                json.dump({"step": self.step - 1, **metrics}, f)
+
+        on_rank0(self._dp, close_logs)
         return metrics
 
     def _eval_render_impl(self, params, occ_state, origins, viewdirs):

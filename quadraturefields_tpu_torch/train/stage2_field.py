@@ -2,7 +2,8 @@
 field.
 
 Port of quadraturefields_tpu/train/stage2_field.py (reference
-examples/train_field.py) on one device. A step:
+examples/train_field.py) on one device or, with num_devices > 1, over
+torch.distributed ranks (parallel/dp.py). A step:
   1. renders the ray batch with the frozen NGP, no grad, keeping each
      sample's forward AND reverse weight (render_rays_field);
   2. maps the sample positions to the NGP's [0, 1]^3, shifted by -0.5
@@ -51,6 +52,19 @@ from ..ops.grid import (
     occ_grid_update,
     resolve_coarse_stride,
 )
+from ..parallel.dp import (
+    allreduce_grads,
+    broadcast_params,
+    local_rcfg,
+    make_dp_occ_eval,
+    psum_count,
+)
+from ..parallel.multihost import (
+    on_rank0,
+    rank_device,
+    shard_batch,
+    world_and_rank,
+)
 from ..render.renderer import RenderConfig, render_rays_field
 from ..utils.batching import bucket_num_rays
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -66,7 +80,7 @@ from .stage1_ngp import MIPNERF360_UNBOUNDED_SCENES, _as_leaf_params, _leaves
 @dataclasses.dataclass
 class Stage2Config:
     """The JAX trainer's config, field for field. `num_devices` > 1
-    (data parallelism) is not ported yet; the trainer refuses it."""
+    trains over that many torch.distributed ranks (parallel/dp.py)."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -212,15 +226,23 @@ class Stage2Config:
 
 
 class Stage2Trainer:
-    """The stage-2 trainer on one device. `field_params` is the field's
-    tree of leaf tensors that require grad; assigning it and calling
-    `_make_optimizer` carries other weights across (utils/convert.py)."""
+    """The stage-2 trainer on one device, or with cfg.num_devices > 1 on
+    each rank of a torch.distributed group of that size (each rank
+    steps on its slice of the global batch, parallel/dp.py; rank 0 alone
+    exports and saves; a device "cuda" without an index is
+    cuda:LOCAL_RANK). `field_params` is the field's tree of leaf tensors
+    that require grad; assigning it and calling `_make_optimizer` carries
+    other weights across (utils/convert.py)."""
 
     def __init__(self, cfg: Stage2Config, ngp_params=None,
                  occ_state: Optional[OccGridState] = None,
                  train_dataset=None, device="cuda"):
-        if cfg.num_devices and cfg.num_devices > 1:
-            raise NotImplementedError("data parallelism is not ported yet")
+        self._dp = bool(cfg.num_devices and cfg.num_devices > 1)
+        if self._dp:
+            self.world, self.rank = world_and_rank(cfg.num_devices)
+            device = rank_device(device)
+        else:
+            self.world, self.rank = 1, 0
         # full-f32 matmuls: the field's f32 decoder gradient feeds the
         # loss, and the NGP's bf16-operand MLP keeps f32 products
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -282,6 +304,8 @@ class Stage2Trainer:
             self.weight_decay = 1e-6
         self.step = 0
         self._make_optimizer()
+        if self._dp:
+            broadcast_params(_leaves(self.field_params))
 
     def _make_optimizer(self):
         """A fresh Adam over self.field_params, its schedule continuing
@@ -292,12 +316,16 @@ class Stage2Trainer:
 
     def _occ_update(self, step: int) -> OccGridState:
         """The occupancy refresh from the frozen NGP (density times the
-        step size), its jitter drawn from the trainer's generator."""
+        step size), its jitter drawn from the trainer's generator; over
+        ranks each evaluates its slice of the points and every rank gets
+        the same state."""
         def occ_eval_fn(x):
             d = ngp_query_density(self.ngp_params, x, self.aabb,
                                   self.ngp_cfg)
             return d[..., 0] * self.cfg.eff_render_step_size
 
+        if self._dp:
+            occ_eval_fn = make_dp_occ_eval(occ_eval_fn)
         with torch.no_grad():
             return occ_grid_update(
                 self.occ_state, step, occ_eval_fn, self.occ_cfg,
@@ -306,13 +334,16 @@ class Stage2Trainer:
             )
 
     def _loss_fn(self, field_params, origins, viewdirs, pixels, bkgd,
-                 t_jitter):
+                 t_jitter, rcfg=None):
         """(loss, aux) of one batch; t_jitter [n_rays] are the
-        stratified march's uniforms. The render takes no grad."""
+        stratified march's uniforms, rcfg the render config (the
+        trainer's unless given: a rank's share of the sample budget).
+        The render takes no grad. aux's num_valid is the samples the
+        rays asked for, kept those within the budget."""
         with torch.no_grad():
             res = render_rays_field(
                 self.ngp_params, self.aabb, self.ngp_cfg, self.occ_state,
-                origins, viewdirs, self.rcfg, render_bkgd=bkgd,
+                origins, viewdirs, rcfg or self.rcfg, render_bkgd=bkgd,
                 stratified=True, t_jitter=t_jitter,
             )
             _, pos01 = ngp_normalize(res.positions, self.aabb, self.ngp_cfg)
@@ -320,16 +351,30 @@ class Stage2Trainer:
         _, fgrad = field_with_grad(field_params, positions, self.field_cfg)
         loss = field_loss(res.weights, res.weights_rev, fgrad, res.dirs,
                           mask=res.valid)
-        aux = {"num_valid": res.num_valid,
+        aux = {"num_valid": res.num_valid, "kept": res.valid.sum(),
                "mse": ((res.rgb - pixels) ** 2).mean()}
         return loss, aux
 
     def _train_step_impl(self, origins, viewdirs, pixels, bkgd, t_jitter):
         """Loss, backward and one Adam update (the schedule steps after
-        it); returns (loss, aux)."""
+        it); returns (loss, aux). Over ranks the rank steps on its slice
+        of the global batch (t_jitter drawn at the global shape) with
+        its share of the budget. field_loss is a mean over the rank's
+        valid samples, so the ranks' losses and gradients combine
+        weighted by their kept counts, n_rank / max(n_total, 1), which
+        makes the sum the global masked mean (JAX dp.py:263-270); the
+        rgb MSE is averaged, and num_valid becomes n_total, the samples
+        kept summed over the ranks, as JAX's DP step returns it (one
+        device returns the rays' demand, which exceeds it where a rank
+        truncates)."""
         self.optimizer.zero_grad(set_to_none=True)
+        rcfg = self.rcfg
+        if self._dp:
+            origins, viewdirs, pixels, t_jitter = shard_batch(
+                (origins, viewdirs, pixels, t_jitter), self.world, self.rank)
+            rcfg = local_rcfg(rcfg, self.world)
         loss, aux = self._loss_fn(self.field_params, origins, viewdirs,
-                                  pixels, bkgd, t_jitter)
+                                  pixels, bkgd, t_jitter, rcfg)
         # the parameters' gradients only: with back_prop the graph reaches
         # the sample positions too, whose gradient nothing reads
         loss.backward(inputs=_leaves(self.field_params))
@@ -339,16 +384,26 @@ class Stage2Trainer:
         for p in _leaves(self.field_params):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if self._dp:
+            n_total = psum_count(aux["kept"])
+            w = (aux["kept"].to(torch.float32)
+                 / n_total.to(torch.float32).clamp_min(1.0))
+            loss, mse = allreduce_grads(
+                _leaves(self.field_params), w,
+                torch.stack([loss * w, aux["mse"] / self.world]))
+            aux = {"num_valid": n_total, "kept": n_total, "mse": mse}
         self.optimizer.step()
         self.scheduler.step()
-        return loss.detach(), aux
+        return loss, aux
 
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     def train_one_step(self):
         """One step; returns (loss, valid samples, the rgb MSE of the
-        frozen NGP's render)."""
+        frozen NGP's render). Over ranks the valid samples are those
+        kept, summed over the ranks (_train_step_impl)."""
         cfg = self.cfg
         if self.step % self.occ_cfg.update_interval == 0:
             self.occ_state = self._occ_update(self.step)
@@ -357,6 +412,8 @@ class Stage2Trainer:
         viewdirs = self._to_device(data["rays"].viewdirs)
         pixels = self._to_device(data["pixels"])
         bkgd = self._to_device(data["color_bkgd"])
+        # drawn at the global batch's shape on every rank, so that the
+        # ranks' generators stay in one state
         t_jitter = torch.rand((origins.shape[0],), generator=self.generator,
                               device=self.device)
         loss, aux = self._train_step_impl(origins, viewdirs, pixels, bkgd,
@@ -413,12 +470,15 @@ class Stage2Trainer:
     def train(self, log_fn=print):
         """Steps 0..max_steps with logging, plots and checkpoints, then
         the artifacts under root/results/<scene>/<exp_name> and the
-        checkpoint root/ckpts/<scene>/<exp_name>/field.pt."""
+        checkpoint root/ckpts/<scene>/<exp_name>/field.pt. Over ranks,
+        rank 0 alone logs, plots, exports and saves."""
         cfg = self.cfg
         out_dir = os.path.join(cfg.root, "results", cfg.scene, cfg.exp_name)
         ckpt_dir = os.path.join(cfg.root, "ckpts", cfg.scene, cfg.exp_name)
-        os.makedirs(out_dir, exist_ok=True)
-        os.makedirs(ckpt_dir, exist_ok=True)
+        writer = self.rank == 0
+        if writer:
+            os.makedirs(out_dir, exist_ok=True)
+            os.makedirs(ckpt_dir, exist_ok=True)
         tic = time.time()
         rays_done = 0
         while self.step <= cfg.max_steps:
@@ -428,10 +488,11 @@ class Stage2Trainer:
             if cfg.plot_every and step % cfg.plot_every == 0:
                 from ..utils.field_plots import plot_field
 
-                plot_field(self.field_with_grad_fn(), out_dir,
-                           scale=cfg.field_scale, grid_size=256, step=step,
-                           device=self.device)
-            if step % cfg.log_every == 0:
+                on_rank0(self._dp, lambda: plot_field(
+                    self.field_with_grad_fn(), out_dir,
+                    scale=cfg.field_scale, grid_size=256, step=step,
+                    device=self.device))
+            if step % cfg.log_every == 0 and writer:
                 elapsed = time.time() - tic
                 log_fn(
                     f"elapsed={elapsed:.1f}s | step={step} | "
@@ -442,9 +503,10 @@ class Stage2Trainer:
                     f"rays/s={rays_done / max(elapsed, 1e-9):.0f}"
                 )
             if step > 0 and step % cfg.ckpt_every == 0:
-                self.save(os.path.join(ckpt_dir, "field.pt"))
-        self.export_artifacts(out_dir)
-        self.save(os.path.join(ckpt_dir, "field.pt"))
+                on_rank0(self._dp, self.save,
+                         os.path.join(ckpt_dir, "field.pt"))
+        on_rank0(self._dp, self.export_artifacts, out_dir)
+        on_rank0(self._dp, self.save, os.path.join(ckpt_dir, "field.pt"))
 
     def save(self, path: str):
         """Field weights, occupancy grid, Adam state and step, as the

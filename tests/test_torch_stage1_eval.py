@@ -195,8 +195,8 @@ def test_metrics_match_jax():
 
 def test_port_runs_without_jax():
     """A fresh interpreter imports the port (stages 5 and 6, LPIPS, the
-    profiling utilities, the NeRF MLPs, every data loader and the
-    checkpoint converter included),
+    profiling utilities, the NeRF MLPs, every data loader, the
+    checkpoint converter and the data parallelism included),
     takes one training step and renders a tiny batch on the CPU, and has
     imported neither jax nor any module of the JAX package."""
     code = """
@@ -215,6 +215,8 @@ import quadraturefields_tpu_torch.data.dnerf_synthetic
 import quadraturefields_tpu_torch.data.ray_utils
 import quadraturefields_tpu_torch.data.tandt
 import quadraturefields_tpu_torch.models.mlp_nerf
+import quadraturefields_tpu_torch.parallel.dp
+import quadraturefields_tpu_torch.parallel.multihost
 import quadraturefields_tpu_torch.utils.lpips
 import quadraturefields_tpu_torch.utils.profiling
 

@@ -350,8 +350,9 @@ def test_port_trains_the_fixture_scene(tmp_path):
 
 def test_cli_trains_on_a_fixture_dataset(tmp_path, monkeypatch):
     """The CLI with the JAX CLI's flags: a few steps, then the final
-    evaluation, args.json and log.json; --num_devices > 1 is refused.
-    The config the CLI builds gets a 32^3 grid and 256-ray eval chunks
+    evaluation, args.json and log.json; --num_devices > 1 is refused
+    with a regularizer other than occ (as JAX's DP trainer refuses it) and
+    outside a torchrun process group of that size. The config the CLI builds gets a 32^3 grid and 256-ray eval chunks
     (no flags set them), so the CPU run stays short."""
     monkeypatch.setattr(tcli, "Stage1Config", functools.partial(
         tst.Stage1Config, grid_resolution=32, eval_chunk=256))
@@ -368,8 +369,11 @@ def test_cli_trains_on_a_fixture_dataset(tmp_path, monkeypatch):
     assert args["max_steps"] == 3 and args["reg_type"] == "both"
     assert json.loads((out / "log.json").read_text())["step"] == 3
     assert os.path.isdir(tmp_path / "runs" / "logs" / "fixture" / "nerf")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="occ regularizer"):
         tcli.main(argv + ["--num_devices", "2"], device="cpu")
+    with pytest.raises(RuntimeError, match="torchrun"):
+        tcli.main(argv + ["--num_devices", "2", "--reg_type", "occ"],
+                  device="cpu")
 
 
 @pytest.mark.slow

@@ -300,7 +300,8 @@ def test_cli_trains_and_exports_from_the_stage1_cli(tmp_path, monkeypatch):
     """The stage-1 CLI's checkpoint feeds the stage-2 CLI (the JAX CLI's
     flags, device "cpu"), which writes the binaries, the three grids and
     its checkpoint; save and load carry the field, Adam and the step;
-    --num_devices > 1 is refused. The configs the CLIs build get a 32^3
+    --num_devices > 1 outside a torchrun process group of that size is
+    refused. The configs the CLIs build get a 32^3
     occupancy grid (no flag sets it; stage 2 must match stage 1's) and
     stage 1 a checkpoint at its last step."""
     monkeypatch.setattr(tcli1, "Stage1Config", functools.partial(
@@ -349,7 +350,7 @@ def test_cli_trains_and_exports_from_the_stage1_cli(tmp_path, monkeypatch):
                        state["opt_state"]["state"][0]["exp_avg"])
     loss, nv, mse = other.train_one_step()
     assert np.isfinite(float(loss)) and nv > 0 and other.step == 5
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="torchrun"):
         tcli2.main(argv + ["--num_devices", "2"], device="cpu")
 
 
