@@ -14,7 +14,7 @@
         # with `git archive`) beside this one's, in turns, on the same
         # inputs
 
-Phases, run in the order 1-5, 11, 7, 8, 12, 13, 9, 10, 14, 6 (any
+Phases, run in the order 1-5, 11, 7, 8, 12, 13, 9, 10, 14, 15, 6 (any
 failure raises and exits non-zero):
   1. print the card's name and power limit; build the kernels of
      quadraturefields_tpu_torch/csrc, one nvcc per source, all at once,
@@ -179,8 +179,9 @@ failure raises and exits non-zero):
      Stage4Trainer with run_nerfsynthetic_tpu_fast.sh's --layout cell
      --grad_payload bf16factor --n_levels 8 --n_features 4 on phase 5's
      checkpoint and phase 8's smp_mesh.ply (the deformation field a
-     cell tet L16 F2 table of 18,363,552 rows x 16 f32, 1.18 GB), 400
-     steps with phase 8's gates and comparisons: a fused cell table
+     cell tet L16 F2 table of 18,363,552 rows x 16 f32, 1.18 GB), 150
+     steps (50 frozen, the mesh update at step 50, then phase 8's 100
+     joint steps) with phase 8's gates and comparisons: a fused cell table
      gradient (JAX's route for each table and point count) once a
      frozen and three times a joint step, the corner K1 and the stream
      entries never;
@@ -217,6 +218,40 @@ failure raises and exits non-zero):
      ms/step of each, the first two labelled as two gloo ranks on one
      card (not a multi-GPU speed). A rank that fails or outlasts
      DP_JOIN_TIMEOUT_S fails the phase.
+ 15. data parallelism of stages 4 and 5 and the sample-axis render
+     ("train_finetune_dp", "train_fit_sg_dp", "sp_render"), spawned as
+     phase 14's ranks are. Run 1: Stage4Trainer(num_devices=2) at
+     run_nerfsynthetic_finetune.sh's widths (the 813 MB deformation
+     table) from phase 7's feeder and phase 8's smp_mesh.ply; a frozen
+     and a joint step at DP45_LOCKSTEP_RAYS rays beside a single-device
+     trainer on the same seed (the same draws bit for bit), each held
+     against the single-device step on the DP trainer's own state and
+     global batch: the loss within 1e-5 relative, the hit count equal,
+     the gradients by compare_step's rule, the deformation caches within
+     1e-5 of max, no rank over its twin budget or hit cap; one joint step
+     with f32 MLPs at 1e-4; then a fresh trainer's train() for
+     DP45_FINETUNE_STEPS steps (DP45_FROZEN frozen, a mesh update at step
+     DP45_UPDATE_AT between two 1-view evaluations on rank 0): on each
+     rank K1 once a frozen and three times a joint step, K4 once a step,
+     K2 and K3 at least once and nothing else; both ranks' batch sizes
+     equal at every step; weights, caches and mesh vertices equal bit
+     for bit (all-gathered sha256); mesh.ply written by rank 0 alone.
+     Run 2: Stage5Trainer(num_devices=2) at run_nerfsynthetic_fit_sg.sh's
+     flags from phase 8's finetune.pt and mesh.ply, DP45_FIT_SG_LOCKSTEP
+     steps held the same way and one step with f32 MLPs at 1e-4, then
+     DP45_FIT_SG_STEPS more: K1 once a step, K2 and K3 at least once,
+     nothing else; phase 9's loss gate.
+     Run 3: four ranks render phase 4's model over the views in chunks
+     of SP_CHUNK rays with make_sp_render over ranks 0-1 and
+     make_dp_sp_render over the 2 x 2 grid, against the single-device
+     one-shot render at the same config (rgb and opacity within 2e-4,
+     depth within 1e-3 where the opacity passes 1e-3, num_valid equal),
+     and stratified over ranks 0-1 against rank 0 alone with one shared
+     u; each rank launches K2, K4 and K3 and nothing else. Run 4
+     ("nccl_dp45"): NCCL45_STEPS steps of each stage through one NCCL
+     rank, each held against the single-device step. Reports ms/step,
+     the stage-4 step's all-reduce alone, each rank's wait on its
+     prefetcher and ms a view, labelled as gloo ranks sharing one card.
 Reduced sizes, against the scripts: the stage-1 feeder runs 300 steps at
 2^18 samples (run_nerfsynthetic.sh: 20,000 at 2^20); stage 2 runs 300
 of its 25,000 steps; the export is 256^3 (the CLI's default 1024^3);
@@ -226,8 +261,11 @@ stage 4 runs 400 of its 10,000 steps with a mesh update every 200
 steps, fall at steps 124 and 299); stage 6 prunes and evaluates on the
 same 4 views; the 360 path runs 300 of its 20,000 steps on the fixture
 views (nerf_360_v2 scenes are not in the repo); the cell stage 4 runs
-phase 8's 400 steps; the back_prop fields run 100 steps each; phase
-14's stage 2 runs 7 steps;
+150 steps, 50 frozen (phase 8: 400, 300); the back_prop fields run 100
+steps each; phase
+14's stage 2 runs 7 steps; phase 15's stage 4 runs 24 steps with a
+mesh update at step 18 (run 1's lockstep 2 more at 256 rays) and its
+stage 5 102, its renders take the fixture views;
 the views are 4 fixture views of 256^2 (the scripts: nerf-synthetic
 chair). The field, the NGP and the 2^18 stage-2 budget run at the
 scripts' widths.
@@ -559,10 +597,14 @@ class FixtureViews:
         self.res, self.seed, self.u = res, seed, 1
         self.focal = 0.5 * res / np.tan(0.5 * np.deg2rad(fov_deg))
         self.poses = list(_look_at_poses(n_views, seed=seed))
-        self._pixels = np.stack([
-            np.clip(render_fixture_view(scene, c2w, res, self.focal,
-                                        step=2e-2)[0], 0, 1)
-            .reshape(-1, 3).astype(np.float32) for c2w in self.poses])
+        def render(c2w):
+            return np.clip(render_fixture_view(scene, c2w, res, self.focal,
+                                               step=2e-2)[0], 0, 1) \
+                .reshape(-1, 3).astype(np.float32)
+
+        # one thread a view: numpy's array work releases the GIL
+        with ThreadPoolExecutor(n_views) as pool:
+            self._pixels = np.stack(list(pool.map(render, self.poses)))
         self._set_rays(1)
         self.num_rays = num_rays
         self.rng = np.random.default_rng(seed)
@@ -2424,8 +2466,23 @@ def compare_finetune_step(torch, trainer, kernels, inputs, freeze):
                 field_limit=field_limit)
 
 
+# phase 12's depth: 150 steps, 50 of them frozen, the mesh update at step
+# 50 (phase 8: 400, 300, 200): the same 100 joint steps after the update,
+# whose gain FINETUNE_GAIN_GATE reads; the frozen steps move the
+# evaluation by less than 1 dB (phase 8's logs: 18.99 at step 0, 19.63 at
+# step 200)
+FINETUNE_CELL_DEPTH = dict(steps=150, frozen=50, update_every=50)
+# run_nerfsynthetic_finetune.sh's flags: --scaling 0.0434 --up_sample 2
+# --voxel_size 150 --max_hits 25 --num_lobes 0 --num_layers 2
+# --log2_hashmap_size 19 --batch_size 17 --scale 1.5
+FINETUNE_FLAGS = dict(scaling=0.0434, up_sample=2, voxel_size=150,
+                      max_hits=25, num_lobes=0, num_layers=2,
+                      log2_hashmap_size=19, batch_size_log2=17, scale=1.5)
+
+
 def finetune_slice(torch, kernels, card, views, captured, report, root,
-                   ckpt, big_export, profile: bool, cell=None):
+                   ckpt, big_export, profile: bool, cell=None, steps=400,
+                   frozen=300, update_every=200):
     """Phase 8 (and phase 12 with `cell`, below): stage 3 on phase 7's
     256^3 export (and on its 1024^3 export with --export 1024), then
     stage 4 at
@@ -2448,8 +2505,10 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
 
     Phase 12 ("train_finetune_cell"): `cell` (Stage4Config fields: the
     cell layout, its payload, levels and features) on phase 8's
-    smp_mesh.ply and `ckpt`, phase 5's cell checkpoint, with no stage 3:
-    the same steps, gates and comparisons, the corner K1 never; K5's
+    smp_mesh.ply and `ckpt`, phase 5's cell checkpoint, with no stage 3,
+    `steps` steps, the first `frozen` frozen, a mesh update every
+    `update_every`: the same gates and comparisons (the gain over the
+    evaluation at the update), the corner K1 never; K5's
     fused entry (the route JAX's routing picks for both tables at these
     sizes) once a frozen and three times a joint step, K7, K6 and the
     stream entries never. Fills report["train_finetune_cell"]."""
@@ -2472,21 +2531,18 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
                                           "1024^3 export")
         shutil.rmtree(big_export)
 
-    # run_nerfsynthetic_finetune.sh: --scaling 0.0434 --up_sample 2
-    # --voxel_size 150 --max_hits 25 --num_lobes 0 --num_layers 2
-    # --log2_hashmap_size 19 --batch_size 17 --scale 1.5; 400 of its
-    # 10,000 steps (300 frozen; steps 0-399, max_steps 399, as train()
-    # runs max_steps + 1), a mesh update every 200 steps (2000)
+    # `steps` of run_nerfsynthetic_finetune.sh's 10,000 (phase 8: 400,
+    # 300 frozen; steps 0-399, max_steps 399, as train() runs max_steps
+    # + 1), a mesh update every `update_every` steps (2000)
     cfg = Stage4Config(
         # phase 12 writes its checkpoint and meshes apart from phase 8's,
         # which phase 9 reads
         root=tempfile.mkdtemp(prefix="qf_smoke_") if cell else root,
         scene="fixture", ckpt_path=ckpt,
-        mesh_path=os.path.join(field_dir, "smp_mesh.ply"), scaling=0.0434,
-        up_sample=2, voxel_size=150, max_hits=25, num_lobes=0, num_layers=2,
-        log2_hashmap_size=19, batch_size_log2=17, scale=1.5, max_steps=399,
-        mesh_update_every=200, eval_views=2, log_every=50,
-        ckpt_every=10**9, **(cell or {}))
+        mesh_path=os.path.join(field_dir, "smp_mesh.ply"),
+        max_steps=steps - 1, freeze_rf_steps=frozen,
+        mesh_update_every=update_every, eval_views=2, log_every=50,
+        ckpt_every=10**9, **{**FINETUNE_FLAGS, **(cell or {})})
     up = views.upsampled(cfg.up_sample, cfg.init_batch_size)
     trainer = Stage4Trainer(cfg, train_dataset=up, test_dataset=up)
     fgrid = trainer.field_cfg.hashgrid
@@ -2506,23 +2562,23 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     # step), so "auto" runs "exact", which sums f32 rows; K7 and K6 never
     # launch
     grads = [hg.CELL_ROW_GRAD_X_KERNEL if cell else hg.ENCODE_BWD_KERNEL]
-    record, evals, waits = [], [], []
+    record, evals, waits, sizes = [], [], [], []
     one_step, evaluate = trainer.train_one_step, trainer.evaluate
     real_next = trainer.prefetcher.next
 
-    def timed_next():
+    def timed_next(num_rays):
         t = time.perf_counter()
-        item = real_next()
+        item = real_next(num_rays)
         waits.append(time.perf_counter() - t)
+        sizes.append(item[0]["rays"].origins.shape[0])
         return item
 
     def timed_step():
-        rays = up.num_rays
         before = sum(k.launches for k in grads)
         t = time.perf_counter()
         loss, nh, mse = one_step()
         loss = float(loss)  # waits for the step
-        record.append((time.perf_counter() - t, rays, nh, loss,
+        record.append((time.perf_counter() - t, sizes[-1], nh, loss,
                        sum(k.launches for k in grads) - before))
         return loss, nh, mse
 
@@ -2556,7 +2612,6 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
               f"{name} never launched {kernel_name}")
     others = {k: n for k, n in launches.items() if k not in path_kernels}
     check(not any(others.values()), f"{name} launched {others}")
-    frozen = cfg.freeze_rf_steps
     k1_frozen = [r[4] for r in record[:frozen]]
     k1_joint = [r[4] for r in record[frozen:]]
     print(f"table-gradient launches a step ({', '.join(k.name for k in grads)}"
@@ -2575,9 +2630,11 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
     final = trainer.evaluate(up, n_views=cfg.eval_views)
     gain = final["psnr"] - evals[0]["psnr"]
     print(f"evaluations ({cfg.eval_views} views, box-downsampled from "
-          f"{up.HEIGHT}^2): step 200 before the mesh update {evals[0]}, "
+          f"{up.HEIGHT}^2): step {update_every} before the mesh update "
+          f"{evals[0]}, "
           f"after {evals[1]}; after training {final} (PSNR gate "
-          f"{FINETUNE_PSNR_GATE}); gain over step 200 {gain:.4f} dB (gate "
+          f"{FINETUNE_PSNR_GATE}); gain over step {update_every} {gain:.4f} "
+          f"dB (gate "
           f"{FINETUNE_GAIN_GATE})")
     check(final["psnr"] >= FINETUNE_PSNR_GATE,
           f"stage-4 eval PSNR {final['psnr']} < {FINETUNE_PSNR_GATE}")
@@ -2606,7 +2663,7 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
                     prefetch_wait_ms=float(np.mean(waits[a:b])) * 1e3)
 
     out.update(
-        steps=n_steps, frozen=window(150, frozen),
+        steps=n_steps, frozen=window(frozen // 2, frozen),
         joint=window(frozen, n_steps), loss_first20=first, loss_last20=last,
         eval_before_update=evals[0], eval_after_update=evals[1],
         eval_final=final, eval_final_native=final_native, psnr_gain=gain,
@@ -2645,8 +2702,8 @@ def finetune_slice(torch, kernels, card, views, captured, report, root,
 
     if profile:
         trainer.prefetcher = HitPrefetcher(
-            up.fetch_train_batch, trainer.mesh_intersect, depth=2,
-            packed_cap=cfg.pack_cap)
+            trainer._draw_batch, trainer.mesh_intersect, depth=2,
+            packed_cap=cfg.pack_cap, num_rays=trainer.num_rays)
         try:
             profile_steps(torch, trainer.train_one_step, card,
                           label=f"stage-4 joint step ({name})")
@@ -2773,6 +2830,24 @@ def compare_fit_sg_step(torch, trainer, kernels, inputs):
     return dict(loss_rel=loss_rel, k1_rel=k1_err, grad_rel=errs, limit=limit)
 
 
+# run_nerfsynthetic_fit_sg.sh's flags: --scaling 0.0434 --up_sample 2.0
+# --max_hits 25 --num_lobes 6 --num_layers 2 --log2_hashmap_size 19
+# --batch_size 18 --scale 1.5
+FIT_SG_FLAGS = dict(scaling=0.0434, up_sample=2, max_hits=25, num_lobes=6,
+                    num_layers=2, log2_hashmap_size=19, batch_size_log2=18,
+                    scale=1.5)
+
+
+def fit_sg_inputs(root) -> dict:
+    """Stage 5's inputs under phase 8's root: its finetune.pt and
+    mesh.ply."""
+    return dict(
+        ckpt_path=os.path.join(root, "ckpts", "fixture", "finetune",
+                               "finetune.pt"),
+        mesh_path=os.path.join(root, "results", "fixture", "finetune",
+                               "mesh.ply"))
+
+
 def fit_sg_slice(torch, kernels, card, views, captured, report, root,
                  profile: bool):
     """Phase 9's stage 5: Stage5Trainer.train at
@@ -2798,19 +2873,12 @@ def fit_sg_slice(torch, kernels, card, views, captured, report, root,
         Stage5Trainer,
     )
 
-    # run_nerfsynthetic_fit_sg.sh: --scaling 0.0434 --up_sample 2.0
-    # --max_hits 25 --num_lobes 6 --num_layers 2 --log2_hashmap_size 19
-    # --batch_size 18 --scale 1.5; FIT_SG_STEPS of its 20,000 steps
-    # (train() runs max_steps + 1)
+    # FIT_SG_STEPS of run_nerfsynthetic_fit_sg.sh's 20,000 steps (train()
+    # runs max_steps + 1)
     cfg = Stage5Config(
-        root=root, scene="fixture",
-        ckpt_path=os.path.join(root, "ckpts", "fixture", "finetune",
-                               "finetune.pt"),
-        mesh_path=os.path.join(root, "results", "fixture", "finetune",
-                               "mesh.ply"),
-        scaling=0.0434, up_sample=2, max_hits=25, num_lobes=6, num_layers=2,
-        log2_hashmap_size=19, batch_size_log2=18, scale=1.5,
-        max_steps=FIT_SG_STEPS - 1, log_every=50, ckpt_every=10**9)
+        root=root, scene="fixture", **fit_sg_inputs(root),
+        max_steps=FIT_SG_STEPS - 1, log_every=50, ckpt_every=10**9,
+        **FIT_SG_FLAGS)
     up = views.upsampled(cfg.up_sample, cfg.init_batch_size)
     trainer = Stage5Trainer(cfg, train_dataset=up)
     sg_grid = trainer.sg_cfg.hashgrid
@@ -2824,22 +2892,23 @@ def fit_sg_slice(torch, kernels, card, views, captured, report, root,
           f"{cfg.pack_cap}; views {len(up)} x {up.HEIGHT}x{up.WIDTH} rays")
 
     k1 = hg.ENCODE_BWD_KERNEL
-    record, waits = [], []
+    record, waits, sizes = [], [], []
     one_step = trainer.train_one_step
     real_next = trainer.prefetcher.next
 
-    def timed_next():
+    def timed_next(num_rays):
         t = time.perf_counter()
-        item = real_next()
+        item = real_next(num_rays)
         waits.append(time.perf_counter() - t)
+        sizes.append(item[0]["rays"].origins.shape[0])
         return item
 
     def timed_step():
-        rays, k1_before = up.num_rays, k1.launches
+        k1_before = k1.launches
         t = time.perf_counter()
         loss, nh, mse = one_step()
         loss = float(loss)  # waits for the step
-        record.append((time.perf_counter() - t, rays, nh, loss,
+        record.append((time.perf_counter() - t, sizes[-1], nh, loss,
                        k1.launches - k1_before))
         return loss, nh, mse
 
@@ -2923,8 +2992,8 @@ def fit_sg_slice(torch, kernels, card, views, captured, report, root,
         )
 
         trainer.prefetcher = HitPrefetcher(
-            up.fetch_train_batch, trainer.mesh_intersect, depth=2,
-            packed_cap=cfg.pack_cap)
+            trainer._draw_batch, trainer.mesh_intersect, depth=2,
+            packed_cap=cfg.pack_cap, num_rays=trainer.num_rays)
         try:
             profile_steps(torch, trainer.train_one_step, card,
                           label="stage-5 step (train_fit_sg)")
@@ -3954,11 +4023,18 @@ def dp_stage2_rank(torch, kernels, views, work, ckpt, dev):
                 all_reduce_ms=dp_all_reduce_ms(torch, leaves))
 
 
-def dp_rank(rank, world, port, work, views, ckpt, device):
-    """One rank of phase 14 (a process of its own, spawned): joins the
-    gloo group on 127.0.0.1, loads the kernels the parent built, runs
-    runs 1 and 2 on `device` (the ranks share the card) and saves its
-    readings to work/rank<rank>.pt; a failure leaves its traceback in
+def dp_rank_body(torch, kernels, work, dev, views, ckpt):
+    """Runs 1 and 2 of phase 14 on this rank (run_ranks)."""
+    return dict(stage1=dp_stage1_rank(torch, kernels, views, work, dev),
+                stage2=dp_stage2_rank(torch, kernels, views, work, ckpt, dev))
+
+
+def spawned_rank(rank, world, port, work, body, args):
+    """One rank of phase 14 or 15 (a process of its own, spawned): joins
+    the gloo group on 127.0.0.1, loads the kernels the parent built,
+    runs body(torch, kernels, work, device, *args) with the card as
+    cuda:0 (the ranks share it) and saves its readings to
+    work/rank<rank>.pt; a failure leaves its traceback in
     work/rank<rank>.err and a non-zero exit."""
     import datetime
     import traceback
@@ -3975,10 +4051,7 @@ def dp_rank(rank, world, port, work, views, ckpt, device):
         kernels = kernels + list(streams.values())
         for k in kernels:
             k.load()
-        dev = torch.device(device)
-        out = dict(stage1=dp_stage1_rank(torch, kernels, views, work, dev))
-        out["stage2"] = dp_stage2_rank(torch, kernels, views, work, ckpt,
-                                       dev)
+        out = body(torch, kernels, work, torch.device("cuda:0"), *args)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     except BaseException:
         with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
@@ -3987,6 +4060,49 @@ def dp_rank(rank, world, port, work, views, ckpt, device):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def run_ranks(torch, world, body, args, label):
+    """body on `world` spawned ranks (spawned_rank) sharing the card;
+    prints each failed rank's traceback, fails on a rank that fails or
+    outlasts DP_JOIN_TIMEOUT_S; returns (each rank's readings, the
+    seconds from the spawn to the join)."""
+    import torch.multiprocessing as mp
+
+    free_device_memory()
+    work = tempfile.mkdtemp(prefix="qf_smoke_ranks_")
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=spawned_rank,
+                         args=(r, world, port, work, body, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    spawn_s = time.perf_counter() - t0
+    print(f"{label}: {world} ranks spawned, run and joined in {spawn_s:.1f} "
+          f"s; exit codes {codes}")
+    for r in range(world):
+        err = Path(work, f"rank{r}.err")
+        if err.exists():
+            print(f"{label} rank {r} failed:\n{err.read_text()}",
+                  file=sys.stderr)
+    check(not hung, f"{label}: ranks {hung} did not finish in "
+          f"{DP_JOIN_TIMEOUT_S} s")
+    check(codes == [0] * world, f"{label}: the ranks exited with {codes}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], spawn_s
 
 
 def dp_paired_single(views, work):
@@ -4108,41 +4224,9 @@ def dp_slice(torch, kernels, card, views, report, phase4, ckpt7):
     Prints every reading, then fails on any gate. Fills
     report["train_dp"], ["train_field_dp"] and ["nccl_dp"]; returns the
     launches of the two spawned paths, summed over the ranks."""
-    import torch.multiprocessing as mp
-
-    free_device_memory()
+    outs, spawn_s = run_ranks(torch, DP_WORLD, dp_rank_body, (views, ckpt7),
+                              "phase 14 runs 1 and 2")
     work = tempfile.mkdtemp(prefix="qf_smoke_dp_")
-    port = free_port()
-    ctx = mp.get_context("spawn")
-    t0 = time.perf_counter()
-    procs = [ctx.Process(target=dp_rank, args=(r, DP_WORLD, port, work,
-                                               views, ckpt7, "cuda:0"))
-             for r in range(DP_WORLD)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DP_JOIN_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        codes = [p.exitcode for p in procs]
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(30)
-    spawn_s = time.perf_counter() - t0
-    print(f"phase 14 runs 1 and 2: two ranks spawned, run and joined in "
-          f"{spawn_s:.1f} s; exit codes {codes}")
-    for r in range(DP_WORLD):
-        err = Path(work, f"rank{r}.err")
-        if err.exists():
-            print(f"phase 14 rank {r} failed:\n{err.read_text()}",
-                  file=sys.stderr)
-    check(not hung, f"ranks {hung} did not finish in {DP_JOIN_TIMEOUT_S} s")
-    check(codes == [0] * DP_WORLD, f"the ranks exited with {codes}")
-    outs = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-            for r in range(DP_WORLD)]
     label = "two gloo ranks on one card, collectives through the host"
     failed = []
 
@@ -4321,6 +4405,847 @@ def nccl_slice(torch, views, card):
           f"{device}, steps {NCCL_COMPARED + 1}-{NCCL_STEPS - 1}: "
           f"{ms:.3f} ms/step [one NCCL rank] [{card}]")
     return dict(readings=readings, ms_per_step=ms, card=card), failed
+
+
+# phase 15's depths, set so that no rank of a lockstep step overruns its
+# share: stage 4's lockstep (one frozen, one joint step) runs at
+# DP45_LOCKSTEP_RAYS rays, whose twin asks well under a rank's 2^16
+# samples and whose hits stay under a rank's 81,920-hit cap; its counted
+# run is a fresh trainer's DP45_FINETUNE_STEPS steps from the config's
+# 1024 initial rays, DP45_FROZEN of them frozen, a mesh update at step
+# DP45_UPDATE_AT between two 1-view evaluations; stage 5 runs
+# DP45_FIT_SG_LOCKSTEP steps in lockstep and DP45_FIT_SG_STEPS more; the
+# sample-axis renders take phase 4's model over the 4 views in chunks of
+# SP_CHUNK rays at a budget of SP_BUDGET samples a rank (no chunk asks
+# for more); run 4 takes NCCL45_STEPS steps of each stage over NCCL
+DP45_LOCKSTEP_RAYS = 256
+DP45_FINETUNE_STEPS = 24
+DP45_FROZEN = 12
+DP45_UPDATE_AT = 18
+DP45_FIT_SG_LOCKSTEP = 2
+DP45_FIT_SG_STEPS = 100
+SP_CHUNK = 16384
+SP_BUDGET = 1 << 22
+SP_SEED = 7
+NCCL45_STEPS = 3
+# the bf16 floor of phase 15's lockstep, above phase 14's 2^-7: each rank
+# rounds its partial weight gradient to bf16 (within 2^-9 of it) where one
+# device rounds the sum once, so the two differ by up to 2^-9 (|g_0| +
+# |g_1| + |g|) elementwise: 3 x 2^-9 = 5.9e-3 of max where the ranks'
+# partials share a sign, more where they cancel. The card read 5.86e-3
+# (stage 5) and 5.93e-3 (stage 4) on its MLP leaves (NVIDIA H100 80GB
+# HBM3, 700 W). The f32-MLP steps, at 1e-4, decide whether the sum is
+# right; a dropped rank's gradient (~half of max) fails either
+DP45_BF16_FLOOR = 2**-6
+# the kernels a DP stage-4 step must launch on every rank: K1 once frozen
+# and three times joint, K4 once (the twin's coarse march), K2 and K3 at
+# least once; a stage-5 step K1 once, K2 and K3 at least once; an SP
+# render K2, K4 and K3
+DP4_SOME = ("hashgrid_encode", "segment_sum")
+DP5_SOME = ("hashgrid_encode", "segment_sum")
+SP_KERNELS = ("hashgrid_encode", "occ_bits", "segment_sum")
+
+
+def dp45_reference(torch, trainer, batch, gen_state, freeze):
+    """The single-device step of the stage-4 (freeze True or False) or
+    stage-5 (freeze None) trainer `trainer` on its own state and the
+    global `batch`: the hits cast at the config's whole cap and sliced to
+    their bucket, the noise drawn again from the generator's state
+    `gen_state`; its loss and gradients (three reruns for their spread)
+    and the true hit count, and for stage 4 the deformation caches after
+    the step and the twin's sample demand."""
+    from quadraturefields_tpu_torch.render.quadrature import (
+        mesh_accumulate_deformation,
+    )
+    from quadraturefields_tpu_torch.render.renderer import (
+        render_rays_occgrid,
+    )
+    from quadraturefields_tpu_torch.utils.batching import snap_pack_cap
+
+    cfg, dev = trainer.cfg, trainer.device
+    o, d = batch["rays"]
+    slots, tri, ts, total = trainer.mesh_intersect.intersect_packed(
+        o, d, cfg.pack_cap)
+    b = snap_pack_cap(total, cfg.pack_cap)
+
+    def on_dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    hits = (on_dev(slots[:b], torch.int32), on_dev(tri[:b], torch.int32),
+            on_dev(ts[:b]), min(total, 2**31 - 1))
+    args = [on_dev(a) for a in (o, d, batch["pixels"], batch["color_bkgd"])]
+    out = dict(total=total)
+    if freeze is None:
+        params = trainer.sg_params
+
+        def loss_fn():
+            return trainer._loss_fn(params, *args, hits)
+    else:
+        params = trainer.params
+        hits += (trainer.face_verts_dev,)
+        gen = torch.Generator(device=dev)
+        gen.set_state(gen_state)
+        n = o.shape[0]
+        noise = (torch.rand((n,), generator=gen, device=dev),
+                 torch.rand((n, cfg.max_hits, 3), generator=gen, device=dev))
+
+        def loss_fn():
+            return trainer._loss_fn(params, *args, hits, *noise, freeze)
+
+        with torch.no_grad():
+            _, aux = loss_fn()
+            out["cache"] = mesh_accumulate_deformation(
+                trainer.cache_d, trainer.cache_w, aux["dh"], aux["weights"],
+                aux["tri_ids"], aux["valid"], trainer.mesh_intersect.n_faces)
+            out["twin_demand"] = int(render_rays_occgrid(
+                params["rf"], trainer.aabb, trainer.ngp_cfg,
+                trainer.occ_state, args[0], args[1], trainer.rcfg,
+                render_bkgd=args[3], stratified=True,
+                t_jitter=noise[0]).num_valid)
+    out["loss"], out["grads"] = step_grads(torch, params,
+                                           lambda: loss_fn()[0])
+    out["reruns"] = [step_grads(torch, params, lambda: loss_fn()[0])[1]
+                     for _ in range(3)]
+    return out
+
+
+def dp45_reading(loss, n_hits, grads, ref, n_bf16, bf16_floor,
+                 f32_floor=DP_F32_FLOOR) -> dict:
+    """A DP step's loss, hit count and combined gradients against the
+    single-device step on its state (dp45_reference), by compare_step's
+    rule: each leaf's max |got - want| over its max |want| (|got| where
+    want is 0: the frozen rf) within max(8 x the single-device step's own
+    spread, a floor); the first n_bf16 leaves (behind bf16 MLPs) at
+    `bf16_floor`, the others at `f32_floor`."""
+    def rel(a, b):
+        return [float((x - y).abs().max() / y.abs().max())
+                if float(y.abs().max()) > 0 else float(x.abs().max())
+                for x, y in zip(a, b, strict=True)]
+
+    want = ref["grads"]
+    spreads = [max(leaf) for leaf in zip(*(rel(r, want)
+                                           for r in ref["reruns"]))]
+    floors = [bf16_floor] * n_bf16 + [f32_floor] * (len(want) - n_bf16)
+    return dict(loss=loss, ref_loss=ref["loss"],
+                loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                n_hits=n_hits, ref_hits=ref["total"],
+                grad_errs=rel(grads, want), spreads=spreads,
+                grad_limits=[max(8 * s, f) for s, f in zip(spreads, floors)])
+
+
+def dp45_leaves(trainer):
+    """(the leaves a stage-4 or stage-5 trainer steps, how many of them
+    lie behind its bf16 MLPs: the rf's, or every SG leaf)."""
+    from quadraturefields_tpu_torch.train.stage1_ngp import _leaves
+
+    if hasattr(trainer, "sg_params"):
+        leaves = _leaves(trainer.sg_params)
+        return leaves, len(leaves)
+    return _leaves(trainer.params), len(_leaves(trainer.params["rf"]))
+
+
+def dp45_lockstep(torch, trainer, n_steps, freeze_of, single=None,
+                  compare=False, bf16_floor=DP45_BF16_FLOOR):
+    """n_steps of the stage-4 or stage-5 DP trainer `trainer` through
+    train_one_step. With `compare` (rank 0), each step's loss, hit count,
+    combined gradients (and for stage 4 caches) are read against the
+    single-device step on the DP trainer's own state and global batch
+    (dp45_reference, freeze_of(step) its freeze), computed just before
+    the DP step; beside it `single`, a single-device trainer on the same
+    seed, steps on its own draws, which must equal the DP trainer's
+    (the batch's rays and the generator's state). Returns (the readings,
+    the last step's (global batch, generator state))."""
+    seen, readings = {}, []
+    hit_args, step_impl = trainer._hit_args, trainer._train_step_impl
+    leaves, n_bf16 = dp45_leaves(trainer)
+
+    def watched_hit_args(item):
+        seen["batch"], seen["gen"] = item[0], trainer.generator.get_state()
+        return hit_args(item)
+
+    def watched_step(*args, **kw):
+        if compare:
+            seen["ref"] = dp45_reference(torch, trainer, seen["batch"],
+                                         seen["gen"], freeze_of(trainer.step))
+        out = step_impl(*args, **kw)
+        seen["grads"] = [p.grad.detach().clone() for p in leaves]
+        return out
+
+    trainer._hit_args, trainer._train_step_impl = watched_hit_args, \
+        watched_step
+    if single is not None:
+        single_hit_args = single._hit_args
+
+        def watched_single(item):
+            seen["single"] = (item[0], single.generator.get_state())
+            return single_hit_args(item)
+
+        single._hit_args = watched_single
+    try:
+        for k in range(n_steps):
+            lr = float(trainer.optimizer.param_groups[0]["lr"])
+            loss, n_hits, _ = trainer.train_one_step()
+            if not compare:
+                continue
+            ref = seen.pop("ref")
+            r = dp45_reading(float(loss), int(n_hits), seen["grads"], ref,
+                             n_bf16, bf16_floor)
+            r.update(step=k, rays=int(seen["batch"]["rays"].origins.shape[0]),
+                     lr=lr, frozen=freeze_of(k))
+            if "cache" in ref:
+                r["cache_errs"] = [
+                    float((got - want).abs().max() / want.abs().max())
+                    for got, want in zip((trainer.cache_d, trainer.cache_w),
+                                         ref["cache"])]
+                r["twin_demand"] = ref["twin_demand"]
+                r["twin_budget"] = trainer.rcfg.max_samples_total // \
+                    trainer.world
+                r["hit_cap"] = trainer.pack_cap
+            if single is not None:
+                single_loss = float(single.train_one_step()[0])
+                batch, state = seen["single"]
+                r.update(single_loss=single_loss, same_draws=bool(
+                    np.array_equal(batch["rays"].origins,
+                                   seen["batch"]["rays"].origins)
+                    and torch.equal(state, seen["gen"])))
+                if k == 0:
+                    r["weights_vs_single"] = max(
+                        float((a.detach() - b.detach()).abs().max())
+                        for a, b in zip(leaves, dp45_leaves(single)[0]))
+            readings.append(r)
+    finally:
+        trainer._hit_args, trainer._train_step_impl = hit_args, step_impl
+        if single is not None:
+            single._hit_args = single_hit_args
+    return readings, (seen["batch"], seen["gen"])
+
+
+def dp45_f32_step(torch, trainer, batch, gen_state):
+    """The stage-4 (joint) or stage-5 DP trainer's step with f32 MLPs on
+    every rank, on its state and the global `batch` (each rank casting
+    its slice), its weights untouched (SGD at lr 0 in Adam's place),
+    against the single-device step with f32 MLPs on rank 0, every leaf
+    at compare_step's float32 limit; returns the reading on rank 0."""
+    from quadraturefields_tpu_torch.parallel.multihost import shard_batch
+
+    stage5 = hasattr(trainer, "sg_params")
+    cfg_name = "sg_cfg" if stage5 else "ngp_cfg"
+    saved = (getattr(trainer, cfg_name), trainer.optimizer,
+             trainer.scheduler)
+    leaves, _ = dp45_leaves(trainer)
+    dev = trainer.device
+    setattr(trainer, cfg_name,
+            dataclasses.replace(saved[0], compute_dtype="float32"))
+    try:
+        ref = (dp45_reference(torch, trainer, batch, gen_state,
+                              None if stage5 else False)
+               if trainer.rank == 0 else None)
+        trainer.optimizer = torch.optim.SGD(leaves, lr=0.0)
+        trainer.scheduler = torch.optim.lr_scheduler.LambdaLR(
+            trainer.optimizer, lambda k: 1.0)
+        hits, _ = trainer.prefetcher._cast(batch)
+        _, hit_args = trainer._hit_args((batch, *hits))
+        o = batch["rays"].origins
+        arrays = [torch.as_tensor(np.asarray(a), device=dev) for a in (
+            o, batch["rays"].viewdirs, batch["pixels"])]
+        if not stage5:
+            gen = torch.Generator(device=dev)
+            gen.set_state(gen_state)
+            arrays += [torch.rand((o.shape[0],), generator=gen, device=dev),
+                       torch.rand((o.shape[0], trainer.cfg.max_hits, 3),
+                                  generator=gen, device=dev)]
+        arrays = shard_batch(arrays, trainer.world, trainer.rank)
+        bkgd = torch.as_tensor(batch["color_bkgd"], device=dev)
+        if stage5:
+            loss, n_hits, _ = trainer._train_step_impl(*arrays, bkgd,
+                                                       hit_args)
+        else:
+            o, d, px, tj, bary = arrays
+            loss, n_hits, _ = trainer._train_step_impl(
+                o, d, px, bkgd, hit_args, tj, bary, freeze_rf=False)
+    finally:
+        setattr(trainer, cfg_name, saved[0])
+        trainer.optimizer, trainer.scheduler = saved[1:]
+    grads = [p.grad.detach().clone() for p in leaves]
+    for p in leaves:
+        p.grad = None
+    if ref is None:
+        return None
+    return dp45_reading(float(loss), int(n_hits), grads, ref, 0, 0.0)
+
+
+def dp45_counted_run(torch, kernels, trainer, run):
+    """run() (the trainer's train()) with every kernel's count set to 0
+    just before and read just after; per step, each kernel's launches,
+    the step's end time (after its loss is read, which waits for it),
+    its loss, the global batch's rays and the wait on the prefetcher."""
+    per_step, seen = [], {}
+    take, one_step = trainer.prefetcher.next, trainer.train_one_step
+
+    def watched_next(num_rays):
+        t = time.perf_counter()
+        item = take(num_rays)
+        seen.update(wait=time.perf_counter() - t,
+                    rays=int(item[0]["rays"].origins.shape[0]))
+        return item
+
+    def counted_step():
+        before = {k.name: k.launches for k in kernels}
+        out = one_step()
+        loss = float(out[0])
+        per_step.append(dict(
+            t=time.perf_counter(), loss=loss, rays=seen["rays"],
+            wait=seen["wait"],
+            launches={k.name: k.launches - before[k.name] for k in kernels}))
+        return out
+
+    trainer.prefetcher.next, trainer.train_one_step = watched_next, \
+        counted_step
+    try:
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        trainer.prefetcher.next, trainer.train_one_step = take, one_step
+    return result, launches, per_step, wall
+
+
+def finetune_dp_config(work, ckpt7, root7, **over):
+    """Run 1's lockstep config: run_nerfsynthetic_finetune.sh's widths
+    from phase 7's feeder and phase 8's smp_mesh.ply, one frozen step,
+    the batch held at DP45_LOCKSTEP_RAYS rays, over DP_WORLD ranks
+    (`over` replaces any field)."""
+    from quadraturefields_tpu_torch.train.stage4_finetune import Stage4Config
+
+    return Stage4Config(**{**dict(
+        root=os.path.join(work, "finetune_dp"), scene="fixture",
+        ckpt_path=ckpt7, mesh_path=os.path.join(
+            root7, "results", "fixture", "field", "smp_mesh.ply"),
+        max_steps=DP45_FINETUNE_STEPS - 1, freeze_rf_steps=1,
+        init_batch_size=DP45_LOCKSTEP_RAYS, max_num_rays=DP45_LOCKSTEP_RAYS,
+        mesh_update_every=10**9, eval_views=1, log_every=10**9,
+        ckpt_every=10**9, num_devices=DP_WORLD, **FINETUNE_FLAGS), **over})
+
+
+def fit_sg_dp_config(work, root7, **over):
+    """Run 2's config: run_nerfsynthetic_fit_sg.sh's flags from phase 8's
+    finetune.pt and mesh.ply, over DP_WORLD ranks (`over` replaces any
+    field)."""
+    from quadraturefields_tpu_torch.train.stage5_fit_sg import Stage5Config
+
+    return Stage5Config(**{**dict(
+        root=os.path.join(work, "fit_sg_dp"), scene="fixture",
+        max_steps=DP45_FIT_SG_LOCKSTEP + DP45_FIT_SG_STEPS - 1,
+        log_every=10**9, ckpt_every=10**9, num_devices=DP_WORLD,
+        **fit_sg_inputs(root7), **FIT_SG_FLAGS), **over})
+
+
+def dp45_finetune_rank(torch, kernels, work, dev, views, ckpt7, root7):
+    """Run 1 on this rank: Stage4Trainer(num_devices=2) at
+    run_nerfsynthetic_finetune.sh's widths from phase 7's feeder and
+    phase 8's smp_mesh.ply; a frozen and a joint step in lockstep at
+    DP45_LOCKSTEP_RAYS rays beside a single-device trainer (rank 0) and
+    one f32 step; then a fresh trainer's train() (DP45_FINETUNE_STEPS
+    steps, DP45_FROZEN frozen, a mesh update at DP45_UPDATE_AT) with the
+    launches counted and mesh.ply's writes counted."""
+    from unittest import mock as _mock
+
+    from quadraturefields_tpu_torch.train import stage4_finetune as st4
+
+    cfg = finetune_dp_config(work, ckpt7, root7)
+    rays = views.upsampled(cfg.up_sample, cfg.init_batch_size)
+    trainer = st4.Stage4Trainer(cfg, train_dataset=rays, device=dev)
+    single = None
+    if trainer.rank == 0:
+        single = st4.Stage4Trainer(
+            dataclasses.replace(cfg, num_devices=0),
+            train_dataset=views.upsampled(cfg.up_sample, cfg.init_batch_size),
+            device=dev)
+    lockstep, (batch, gen) = dp45_lockstep(
+        torch, trainer, 2, lambda step: step < cfg.freeze_rf_steps, single,
+        compare=trainer.rank == 0)
+    f32 = dp45_f32_step(torch, trainer, batch, gen)
+    for t in (trainer, single):
+        if t is not None:
+            t.prefetcher.stop()
+    del trainer, single, batch
+    free_device_memory()
+
+    defaults = st4.Stage4Config()
+    counted = dataclasses.replace(
+        cfg, freeze_rf_steps=DP45_FROZEN, mesh_update_every=DP45_UPDATE_AT,
+        init_batch_size=defaults.init_batch_size,
+        max_num_rays=defaults.max_num_rays)
+    rays = views.upsampled(counted.up_sample, counted.init_batch_size)
+    trainer = st4.Stage4Trainer(counted, train_dataset=rays,
+                                test_dataset=rays, device=dev)
+    writes = []
+    save_ply = st4.save_ply
+
+    def counted_save_ply(*args):
+        writes.append(args[0])
+        return save_ply(*args)
+
+    with _mock.patch.object(st4, "save_ply", counted_save_ply):
+        _, launches, per_step, wall = dp45_counted_run(
+            torch, kernels, trainer, trainer.train)
+    leaves, _ = dp45_leaves(trainer)
+    state = leaves + [trainer.cache_d, trainer.cache_w, torch.as_tensor(
+        trainer.mesh_intersect.mesh.vertices)]
+    return dict(lockstep=lockstep, f32=f32, launches=launches,
+                per_step=per_step, wall=wall, mesh_writes=writes,
+                digests=dp_replicas(torch, state),
+                all_reduce_ms=dp_all_reduce_ms(
+                    torch, leaves + [trainer.cache_d, trainer.cache_w],
+                    reps=2),
+                all_reduce_mb=4 * (sum(p.numel() for p in leaves)
+                                   + 4 * trainer.mesh_intersect.n_faces) / 1e6,
+                faces=trainer.mesh_intersect.n_faces)
+
+
+def dp45_fit_sg_rank(torch, kernels, work, dev, views, root7):
+    """Run 2 on this rank: Stage5Trainer(num_devices=2) at
+    run_nerfsynthetic_fit_sg.sh's flags from phase 8's finetune.pt and
+    mesh.ply; DP45_FIT_SG_LOCKSTEP steps in lockstep beside a
+    single-device trainer (rank 0), then train() on for
+    DP45_FIT_SG_STEPS steps with the launches counted."""
+    from quadraturefields_tpu_torch.train.stage5_fit_sg import Stage5Trainer
+
+    cfg = fit_sg_dp_config(work, root7)
+    trainer = Stage5Trainer(
+        cfg, train_dataset=views.upsampled(cfg.up_sample,
+                                           cfg.init_batch_size), device=dev)
+    single = None
+    if trainer.rank == 0:
+        single = Stage5Trainer(
+            dataclasses.replace(cfg, num_devices=0),
+            train_dataset=views.upsampled(cfg.up_sample, cfg.init_batch_size),
+            device=dev)
+    lockstep, (batch, gen) = dp45_lockstep(
+        torch, trainer, DP45_FIT_SG_LOCKSTEP, lambda step: None, single,
+        compare=trainer.rank == 0)
+    f32 = dp45_f32_step(torch, trainer, batch, gen)
+    if single is not None:
+        single.prefetcher.stop()
+    del single, batch
+    free_device_memory()
+    _, launches, per_step, wall = dp45_counted_run(torch, kernels, trainer,
+                                                   trainer.train)
+    leaves, _ = dp45_leaves(trainer)
+    return dict(lockstep=lockstep, f32=f32, launches=launches,
+                per_step=per_step, wall=wall,
+                digests=dp_replicas(torch, leaves),
+                all_reduce_ms=dp_all_reduce_ms(torch, leaves),
+                checkpoint=os.path.exists(os.path.join(
+                    cfg.root, "ckpts", "fixture", cfg.exp_name, "fit_sg.pt")))
+
+
+def sp_rank_body(torch, kernels, work, dev, views, ckpt4):
+    """Run 3 on this rank of four: phase 4's model rendered over the
+    views in chunks of SP_CHUNK rays by make_sp_render over ranks 0-1,
+    by make_dp_sp_render over the 2 x 2 grid, and stratified over ranks
+    0-1 and over rank 0 alone with one shared draw of u; rank 0 renders
+    each chunk on one device too (render_rays_occgrid, the one-shot
+    render) and reads the sharded renders against it. The launches are
+    counted in the sharded renders alone."""
+    import torch.distributed as dist
+
+    from quadraturefields_tpu_torch.ops.grid import OccGridState
+    from quadraturefields_tpu_torch.parallel import sp
+    from quadraturefields_tpu_torch.parallel.multihost import make_rank_grid
+    from quadraturefields_tpu_torch.render.renderer import (
+        render_rays_occgrid,
+    )
+    from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config
+    from quadraturefields_tpu_torch.utils.checkpoint import load_checkpoint
+
+    rank = dist.get_rank()
+    one, two = dist.new_group([0]), dist.new_group([0, 1])
+    grid = make_rank_grid(2, 2)
+    cfg = Stage1Config(scene="fixture")
+    aabb = torch.as_tensor(cfg.aabb, device=dev)
+    ngp_cfg = cfg.ngp_config()
+    rcfg = dataclasses.replace(cfg.render_config(),
+                               max_samples_total=SP_BUDGET)
+    state = load_checkpoint(ckpt4, map_location=dev)
+    params = state["params"]
+    occ = OccGridState(occs=state["occs"].float(),
+                       binaries=state["binaries"].bool(), aabb=aabb)
+    renders = {"dp_sp": sp.make_dp_sp_render(aabb, ngp_cfg, rcfg, grid)}
+    if rank < 2:
+        renders["sp"] = sp.make_sp_render(aabb, ngp_cfg, rcfg, two)
+    sp_one = sp.make_sp_render(aabb, ngp_cfg, rcfg, one) if rank == 0 \
+        else None
+    bkgd = torch.ones(3, device=dev)
+    for k in kernels:
+        k.launches = 0
+    counts = {k.name: 0 for k in kernels}
+    errs = []
+    times = {name: 0.0 for name in ("sp", "dp_sp", "sp_stratified",
+                                    "single")}
+
+    def timed(name, fn, *args, **kw):
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[name] += time.perf_counter() - t
+        if name != "single":
+            for k in kernels:
+                counts[k.name] += k.launches - before[k.name]
+        return out
+
+    def against(got, want):
+        rgb, op, depth, nv = got
+        hit = want[1][:, 0] > 1e-3
+        err = (depth - want[2]).abs()[hit]
+        # beyond the tolerance 1e-3 + 1e-3 |want| where the ray hit
+        over = err - 1e-3 - 1e-3 * want[2].abs()[hit]
+        return dict(
+            rgb=float((rgb - want[0]).abs().max()),
+            opacity=float((op - want[1]).abs().max()),
+            depth=float(err.max()) if err.numel() else 0.0,
+            depth_over=float(over.max()) if over.numel() else -1.0,
+            num_valid=(int(nv), int(want[3])))
+
+    for i in range(len(views)):
+        data = views.fetch_eval_view(i)
+        o_all = torch.as_tensor(data["rays"].origins, device=dev)
+        d_all = torch.as_tensor(data["rays"].viewdirs, device=dev)
+        for c in range(0, o_all.shape[0], SP_CHUNK):
+            o, d = o_all[c:c + SP_CHUNK], d_all[c:c + SP_CHUNK]
+            got = {name: timed(name, fn, params, occ, o, d,
+                               render_bkgd=bkgd)
+                   for name, fn in renders.items()}
+            strat = None
+            if rank < 2:
+                gen = torch.Generator(device=dev).manual_seed(SP_SEED + c)
+                strat = timed("sp_stratified", renders["sp"], params, occ,
+                              o, d,
+                              render_bkgd=bkgd, generator=gen,
+                              stratified=True)
+            if rank == 0:
+                with torch.no_grad():
+                    r = timed("single", render_rays_occgrid, params, aabb,
+                              ngp_cfg, occ, o, d, rcfg, render_bkgd=bkgd)
+                ref = (r.rgb, r.opacity, r.depth, r.num_valid)
+                gen = torch.Generator(device=dev).manual_seed(SP_SEED + c)
+                strat_one = sp_one(params, occ, o, d, render_bkgd=bkgd,
+                                   generator=gen, stratified=True)
+                errs.append(dict(
+                    view=i, chunk=c, demand=int(r.num_valid),
+                    **{name: against(out, ref) for name, out in got.items()},
+                    stratified=against(strat, strat_one)))
+    return dict(errs=errs, launches=counts,
+                ms_per_view={k: v / len(views) * 1e3
+                             for k, v in times.items()})
+
+
+def dp45_rank_body(torch, kernels, work, dev, views, ckpt7, root7):
+    """Runs 1 and 2 on this rank."""
+    return dict(
+        finetune=dp45_finetune_rank(torch, kernels, work, dev, views, ckpt7,
+                                    root7),
+        fit_sg=dp45_fit_sg_rank(torch, kernels, work, dev, views, root7))
+
+
+def dp45_lockstep_failures(name, readings) -> list:
+    """Prints rank 0's lockstep readings (stage 4 or 5); returns the
+    gates they fail."""
+    failed = []
+    for r in readings:
+        step = f"{name} lockstep step {r['step']}"
+        print(f"{step} ({r['rays']} rays{', frozen' if r['frozen'] else ''})"
+              f": DP loss {r['loss']} vs the single-device step on the same "
+              f"state {r['ref_loss']} (relative {r['loss_rel']:.3e}, limit "
+              f"1e-5); hits {r['n_hits']} vs {r['ref_hits']}; gradient error "
+              f"/ max |grad| per leaf {r['grad_errs']} (limits "
+              f"{r['grad_limits']}; the single-device step vs itself "
+              f"{r['spreads']})"
+              + (f"; caches (d, w) within {r['cache_errs']} of max (limit "
+                 f"1e-5); the twin's samples {r['twin_demand']} (one rank's "
+                 f"budget {r['twin_budget']}), a rank's hit cap "
+                 f"{r['hit_cap']}" if "cache_errs" in r else "")
+              + (f"; the single-device trainer's own step: loss "
+                 f"{r['single_loss']}, same draws {r['same_draws']}"
+                 if "same_draws" in r else "")
+              + (f", weights within {r['weights_vs_single']:.3e} of the DP "
+                 f"trainer's (lr {r['lr']:.3e})"
+                 if "weights_vs_single" in r else ""))
+        if not r.get("same_draws", True):
+            failed.append(f"{step}: the DP trainer drew another batch")
+        if r["n_hits"] != r["ref_hits"]:
+            failed.append(f"{step}: the hit count differs")
+        if r["loss_rel"] > 1e-5 or any(
+                e > lim for e, lim in zip(r["grad_errs"], r["grad_limits"])):
+            failed.append(f"{step}: the DP loss or gradients disagree")
+        if "cache_errs" in r:
+            if max(r["cache_errs"]) > 1e-5:
+                failed.append(f"{step}: the deformation caches disagree")
+            if (r["twin_demand"] >= r["twin_budget"]
+                    or r["ref_hits"] >= r["hit_cap"]):
+                failed.append(f"{step}: a rank may have truncated")
+        if r.get("weights_vs_single", 0.0) > 2.0001 * r["lr"]:
+            failed.append(f"{step}: the weights after the first DP step are "
+                          f"{r['weights_vs_single']} from the single "
+                          f"device's")
+    return failed
+
+
+def dp45_step_failures(name, outs, exact, some) -> list:
+    """The gates on every rank's counted steps: each kernel named in
+    `exact` launched exact[name](step) times, each in `some` at least
+    once, no other kernel; both ranks' global batches the same size at
+    every step; their states equal bit for bit."""
+    failed = []
+    for rank, o in enumerate(outs):
+        for i, s in enumerate(o["per_step"]):
+            n = s["launches"]
+            want = {k: f(i) for k, f in exact.items()}
+            others = {k: v for k, v in n.items()
+                      if k not in (*want, *some) and v}
+            if (any(n[k] != v for k, v in want.items())
+                    or any(n[k] < 1 for k in some) or others):
+                failed.append(f"{name} rank {rank}, counted step {i}: {n}")
+    rays = [[s["rays"] for s in o["per_step"]] for o in outs]
+    if any(r != rays[0] for r in rays):
+        failed.append(f"{name}: the ranks' batch sizes differ: {rays}")
+    if len({d for o in outs for d in o["digests"]}) != 1:
+        failed.append(f"{name}: the ranks' states differ: "
+                      f"{outs[0]['digests']}")
+    return failed
+
+
+def step_ms(per_step, first, last, skip=()):
+    """Mean ms of counted steps first..last-1 (each from the end of the
+    one before), leaving out those in `skip`."""
+    dts = [per_step[i]["t"] - per_step[i - 1]["t"]
+           for i in range(max(first, 1), last) if i not in skip]
+    return float(np.mean(dts)) * 1e3
+
+
+def dp45_slice(torch, kernels, card, views, report, ckpt7, root7, ckpt4):
+    """Phase 15: data parallelism of stages 4 and 5 over two gloo ranks
+    that share the card (runs 1 and 2, spawned), the sample-axis render
+    over two and four gloo ranks (run 3, spawned), then both stages over
+    one NCCL rank (run 4, here). Prints every reading, then fails on any
+    gate. Fills report["train_finetune_dp"], ["train_fit_sg_dp"],
+    ["sp_render"] and ["nccl_dp45"]; returns the launches of the three
+    spawned paths, summed over their ranks."""
+    label = "two gloo ranks on one card, collectives through the host"
+    outs, spawn_s = run_ranks(torch, DP_WORLD, dp45_rank_body,
+                              (views, ckpt7, root7), "phase 15 runs 1 and 2")
+    failed = []
+
+    # run 1: stage 4 at run_nerfsynthetic_finetune.sh's widths
+    s4 = [o["finetune"] for o in outs]
+    failed += dp45_lockstep_failures("train_finetune_dp", s4[0]["lockstep"])
+    f32 = s4[0]["f32"]
+    print_grad_reading("train_finetune_dp, one joint step with f32 MLPs",
+                       dict(f32, grad_limit=max(f32["grad_limits"])))
+    if f32["loss_rel"] > 1e-5 or any(
+            e > lim for e, lim in zip(f32["grad_errs"], f32["grad_limits"])):
+        failed.append("train_finetune_dp: the f32 DP step disagrees")
+    failed += dp45_step_failures(
+        "train_finetune_dp", s4,
+        {"hashgrid_encode_bwd": lambda i: 1 if i < DP45_FROZEN else 3,
+         "occ_bits": lambda i: 1}, DP4_SOME)
+    writes = [len(o["mesh_writes"]) for o in s4]
+    if writes != [2, 0]:
+        failed.append(f"train_finetune_dp: mesh.ply written {writes} times "
+                      f"by the ranks, not [2, 0]")
+    steps = s4[0]["per_step"]
+    frozen_ms = step_ms(steps, 2, DP45_FROZEN)
+    joint_ms = step_ms(steps, DP45_FROZEN + 1, len(steps),
+                       skip=(DP45_UPDATE_AT + 1,))
+    waits = [float(np.mean([s["wait"] for s in o["per_step"]])) * 1e3
+             for o in s4]
+    print(f"train_finetune_dp: {len(steps)} counted steps + 2 evaluations "
+          f"+ 2 mesh updates + checkpoint in {s4[0]['wall']:.2f} s; mesh "
+          f"{s4[0]['faces']} faces; launches rank 0 {s4[0]['launches']}, "
+          f"rank 1 {s4[1]['launches']}; rays a step "
+          f"{[s['rays'] for s in steps]}; mesh.ply writes {writes}; digests "
+          f"(weights, caches, vertices) {[d[:16] for d in s4[0]['digests']]}")
+    print(f"train_finetune_dp: frozen steps 2-{DP45_FROZEN - 1} "
+          f"{frozen_ms:.3f} ms/step, joint steps {DP45_FROZEN + 1}-"
+          f"{len(steps) - 1} {joint_ms:.3f} ms/step (phase 8 on one device: "
+          f"{report['train_finetune']['frozen']['ms_per_step']:.3f} and "
+          f"{report['train_finetune']['joint']['ms_per_step']:.3f}); the "
+          f"step's {s4[0]['all_reduce_mb']:.1f} MB all-reduce alone "
+          f"{s4[0]['all_reduce_ms']:.3f} ms; prefetcher wait a step, rank 0 "
+          f"{waits[0]:.3f} ms, rank 1 {waits[1]:.3f} ms [{label}] [{card}]")
+
+    # run 2: stage 5 at run_nerfsynthetic_fit_sg.sh's flags
+    s5 = [o["fit_sg"] for o in outs]
+    failed += dp45_lockstep_failures("train_fit_sg_dp", s5[0]["lockstep"])
+    f32_5 = s5[0]["f32"]
+    print_grad_reading("train_fit_sg_dp, one step with f32 MLPs",
+                       dict(f32_5, grad_limit=max(f32_5["grad_limits"])))
+    if f32_5["loss_rel"] > 1e-5 or any(
+            e > lim for e, lim in zip(f32_5["grad_errs"],
+                                      f32_5["grad_limits"])):
+        failed.append("train_fit_sg_dp: the f32 DP step disagrees")
+    failed += dp45_step_failures(
+        "train_fit_sg_dp", s5, {"hashgrid_encode_bwd": lambda i: 1},
+        DP5_SOME)
+    losses = [s["loss"] for s in s5[0]["per_step"]]
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    if not (np.isfinite(losses).all() and last < FIT_SG_LOSS_GATE * first):
+        failed.append(f"train_fit_sg_dp: the loss rose: {first} -> {last}")
+    if not s5[0]["checkpoint"]:
+        failed.append("train_fit_sg_dp: no fit_sg.pt")
+    steps5 = s5[0]["per_step"]
+    fit_ms = step_ms(steps5, 10, len(steps5))
+    print(f"train_fit_sg_dp: {len(steps5)} counted steps + checkpoint in "
+          f"{s5[0]['wall']:.2f} s; launches rank 0 {s5[0]['launches']}, rank "
+          f"1 {s5[1]['launches']}; loss first 20 {first:.6f}, last 20 "
+          f"{last:.6f} (ratio {last / first:.4f}, gate {FIT_SG_LOSS_GATE}); "
+          f"steps 10-{len(steps5) - 1} {fit_ms:.3f} ms/step (phase 9 on one "
+          f"device: {report['train_fit_sg']['ms_per_step']:.3f}); the "
+          f"step's all-reduce alone {s5[0]['all_reduce_ms']:.3f} ms "
+          f"[{label}] [{card}]")
+
+    report["train_finetune_dp"] = dict(
+        lockstep=s4[0]["lockstep"], f32=f32, frozen_ms_per_step=frozen_ms,
+        joint_ms_per_step=joint_ms, all_reduce_ms=s4[0]["all_reduce_ms"],
+        all_reduce_mb=s4[0]["all_reduce_mb"], prefetch_wait_ms=waits,
+        rays=[s["rays"] for s in steps], label=label,
+        launches=[o["launches"] for o in s4], card=card)
+    report["train_fit_sg_dp"] = dict(
+        lockstep=s5[0]["lockstep"], f32=f32_5, ms_per_step=fit_ms,
+        all_reduce_ms=s5[0]["all_reduce_ms"], loss_first20=first,
+        loss_last20=last, label=label,
+        launches=[o["launches"] for o in s5], card=card)
+
+    # run 3: the sample-axis render of phase 4's model
+    outs3, spawn3 = run_ranks(torch, 4, sp_rank_body, (views, ckpt4),
+                              "phase 15 run 3")
+    errs = outs3[0]["errs"]
+    worst = {name: {k: max(e[name][k] for e in errs)
+                    for k in ("rgb", "opacity", "depth", "depth_over")}
+             for name in ("sp", "dp_sp", "stratified")}
+    nv_equal = {name: all(e[name]["num_valid"][0] == e[name]["num_valid"][1]
+                          for e in errs)
+                for name in ("sp", "dp_sp", "stratified")}
+    demand = max(e["demand"] for e in errs)
+    for name in worst:
+        w = worst[name]
+        if (w["rgb"] > 2e-4 or w["opacity"] > 2e-4 or w["depth_over"] > 0
+                or not nv_equal[name]):
+            failed.append(f"sp_render {name}: {w}, num_valid equal "
+                          f"{nv_equal[name]}")
+    if demand >= SP_BUDGET:
+        failed.append(f"sp_render: a chunk asked for {demand} samples")
+    for rank, o in enumerate(outs3):
+        n = o["launches"]
+        others = {k: v for k, v in n.items() if k not in SP_KERNELS and v}
+        if any(n[k] < 1 for k in SP_KERNELS) or others:
+            failed.append(f"sp_render rank {rank}: {n}")
+    ms = outs3[0]["ms_per_view"]
+    print(f"sp_render: phase 4's model over {len(views)} views of "
+          f"{views.res}^2 rays in chunks of {SP_CHUNK} (budget {SP_BUDGET} "
+          f"samples a rank; the most a chunk asked for on one device "
+          f"{demand}): against the one-shot render, worst |rgb|, |opacity|, "
+          f"|depth| where the opacity passes 1e-3, and |depth| beyond 1e-3 + "
+          f"1e-3 |depth| (limits 2e-4, 2e-4, -, 0): over 2 ranks "
+          f"{worst['sp']}, over the 2 x 2 grid {worst['dp_sp']}; stratified "
+          f"over 2 ranks against 1 {worst['stratified']}; "
+          f"num_valid equal {nv_equal}; launches {[o['launches'] for o in outs3]}")
+    print(f"sp_render: ms a view over 2 ranks {ms['sp']:.3f}, over the "
+          f"2 x 2 grid {ms['dp_sp']:.3f}, stratified over 2 ranks "
+          f"{ms['sp_stratified']:.3f}, the one-shot render on one device "
+          f"{ms['single']:.3f} [two and four gloo ranks on one card, "
+          f"collectives through the host] [{card}]")
+    report["sp_render"] = dict(
+        worst=worst, num_valid_equal=nv_equal, demand=demand,
+        ms_per_view=ms, launches=[o["launches"] for o in outs3], card=card)
+    report["dp45_spawn_s"] = [spawn_s, spawn3]
+
+    report["nccl_dp45"], nccl_failed = nccl45_slice(torch, views, card,
+                                                    ckpt7, root7)
+    failed += nccl_failed
+    check(not failed, "phase 15: " + "; ".join(failed))
+
+    def summed(runs):
+        return {k: sum(o["launches"][k] for o in runs)
+                for k in runs[0]["launches"]}
+
+    return summed(s4), summed(s5), summed(outs3)
+
+
+def nccl45_slice(torch, views, card, ckpt7, root7):
+    """Phase 15's run 4: NCCL45_STEPS steps of run 1's lockstep config
+    (one frozen, then joint) and of run 2's through Stage4Trainer's and
+    Stage5Trainer's DP paths over an NCCL group of one rank, joined as
+    a torchrun rank joins (multihost.init_distributed), each step held
+    against the single-device step on the same state and batch
+    (dp45_reading; bf16 leaves at 2^-8, one rank making the single
+    device's roundings). Returns (its readings, the gates they fail)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from quadraturefields_tpu_torch.parallel.multihost import (
+        init_distributed,
+        rank_device,
+    )
+    from quadraturefields_tpu_torch.train.stage4_finetune import (
+        Stage4Trainer,
+    )
+    from quadraturefields_tpu_torch.train.stage5_fit_sg import Stage5Trainer
+
+    free_device_memory()
+    work = tempfile.mkdtemp(prefix="qf_smoke_nccl45_")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    readings = {}
+    try:
+        init_distributed("nccl", timeout=datetime.timedelta(
+            seconds=DP_COLLECTIVE_TIMEOUT_S))
+        device = rank_device("cuda")
+        for name, make, freeze_of in (
+            ("train_finetune_dp", lambda: Stage4Trainer(
+                finetune_dp_config(work, ckpt7, root7, num_devices=0),
+                train_dataset=views.upsampled(2, DP45_LOCKSTEP_RAYS),
+                device=device), lambda step: step < 1),
+            ("train_fit_sg_dp", lambda: Stage5Trainer(
+                fit_sg_dp_config(work, root7, num_devices=0),
+                train_dataset=views.upsampled(2, 1024), device=device),
+             lambda step: None),
+        ):
+            tr = make()
+            # the DP path over the group of one rank
+            tr._dp, tr.world, tr.rank = True, 1, 0
+            try:
+                readings[name], _ = dp45_lockstep(
+                    torch, tr, NCCL45_STEPS, freeze_of, compare=True,
+                    bf16_floor=2**-8)
+            finally:
+                tr.prefetcher.stop()
+            del tr
+            free_device_memory()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    failed = []
+    for name, rs in readings.items():
+        failed += dp45_lockstep_failures(f"nccl_dp45 {name}", rs)
+    print(f"nccl_dp45: {NCCL45_STEPS} steps of each stage over NCCL with one "
+          f"rank on {device} [one NCCL rank] [{card}]")
+    return dict(readings=readings, card=card), failed
 
 
 def time_captured(torch, report, captured, card, baseline=None):
@@ -4698,6 +5623,9 @@ def main() -> int:
         ("hashgrid_encode", "occ_bits", "segment_sum", "hashgrid_encode_bwd"),
         (hg, "table_grad_kernel", hg.table_grad_plain),
         captured, profile, out=phase4)
+    # phase 15's sample-axis render reads phase 4's trained model
+    ckpt4 = os.path.join(phase4["trainer"].cfg.root, "ngp.pt")
+    phase4["trainer"].save(ckpt4)
     del phase4["trainer"]
     check(train_launches[hg.ENCODE_BWD_STOCHASTIC_KERNEL.name] == 0,
           "the exact training path launched K1's stochastic form")
@@ -4774,7 +5702,8 @@ def main() -> int:
     finetune_cell_launches = finetune_slice(
         torch, counted, card, views, captured, report, root7, cell_ckpt,
         None, profile, cell=dict(layout="cell", grad_payload="bf16factor",
-                                 n_levels=8, n_features=4))
+                                 n_levels=8, n_features=4),
+        **FINETUNE_CELL_DEPTH)
 
     # phase 13: back_prop=True of the quadrature field, corner and cell
     corner_bp, cell_bp = field_back_prop_slice(
@@ -4803,6 +5732,12 @@ def main() -> int:
     dp_launches, field_dp_launches = dp_slice(
         torch, counted, card, views, report, phase4, ckpt7)
 
+    # phase 15: data parallelism of stages 4 and 5 over two gloo ranks on
+    # the card, the sample-axis render over two and four, then both
+    # stages over one NCCL rank
+    finetune_dp_launches, fit_sg_dp_launches, sp_launches = dp45_slice(
+        torch, counted, card, views, report, ckpt7, root7, ckpt4)
+
     time_captured(torch, report, captured, card, baseline)
     time_segment_sums(torch, report, captured, card, baseline)
 
@@ -4821,7 +5756,10 @@ def main() -> int:
              "train_360": train_360_launches,
              "train_finetune_cell": finetune_cell_launches,
              "field_back_prop": back_prop_launches,
-             "train_dp": dp_launches, "train_field_dp": field_dp_launches}
+             "train_dp": dp_launches, "train_field_dp": field_dp_launches,
+             "train_finetune_dp": finetune_dp_launches,
+             "train_fit_sg_dp": fit_sg_dp_launches,
+             "sp_render": sp_launches}
     for name, stream in streams.items():
         report[name]["stream"]["launches_by_path"] = {
             p: n[stream.name] for p, n in paths.items()}
@@ -4840,6 +5778,9 @@ def main() -> int:
     print(json.dumps({k: report[k] for k in (
         "train_dp", "train_field_dp", "nccl_dp", "dp_spawn_s")},
         default=float))
+    print(json.dumps({k: report[k] for k in (
+        "train_finetune_dp", "train_fit_sg_dp", "sp_render", "nccl_dp45",
+        "dp45_spawn_s")}, default=float))
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

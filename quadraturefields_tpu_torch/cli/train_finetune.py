@@ -7,13 +7,18 @@ the JAX CLI's flags.
 
 `--ckpt_path` is a stage-1 checkpoint the port wrote
 (`Stage1Trainer.save`), `--mesh_path` stage 3's smp_mesh.ply. Runs on
-the CUDA card unless main() is given another device; `--num_devices` > 1
-(data parallelism) is not ported yet and raises.
+the CUDA card unless main() is given another device. Data parallelism is one
+process per rank, each on its own card, over NCCL (gloo on the CPU):
+    torchrun --nproc_per_node N -m quadraturefields_tpu_torch.cli.train_finetune \\
+        --num_devices N --ckpt_path ... --mesh_path ...
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
+from ..parallel.multihost import maybe_initialize_distributed
 from ..train.stage4_finetune import Stage4Config, Stage4Trainer
 
 
@@ -60,15 +65,19 @@ def build_parser():
                         "sample target; 0 = dense rows "
                         "(render/quadrature.py)")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="ray-batch data parallelism over the first N "
-                        "devices (0/1 = single device; not ported yet)")
+                   help="ray-batch data parallelism over N ranks, one "
+                        "process each (0/1 = single device; launch with "
+                        "torchrun --nproc_per_node N; parallel/dp.py)")
     return p
 
 
 def main(argv=None, device: str = "cuda"):
     args = build_parser().parse_args(argv)
     if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError("data parallelism is not ported yet")
+        # join the torchrun launch's process group (a no-op without one;
+        # the trainer then refuses num_devices)
+        maybe_initialize_distributed(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
     cfg = Stage4Config(
         num_devices=args.num_devices,
         interp=args.interp,

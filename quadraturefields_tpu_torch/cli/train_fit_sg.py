@@ -8,14 +8,19 @@ the JAX CLI's flags.
 `--ckpt_path` is a stage-4 checkpoint the port wrote
 (`Stage4Trainer.save`), `--mesh_path` stage 4's mesh.ply. The SG model
 is saved to ROOT/ckpts/SCENE/EXP/fit_sg.pt. Runs on the CUDA card
-unless main() is given another device; `--num_devices` > 1 (data
-parallelism) is not ported yet and raises. `--optix` is accepted for
-script parity (the host BVH casts the rays).
+unless main() is given another device. `--optix` is accepted for
+script parity (the host BVH casts the rays). Data parallelism is one
+process per rank, each on its own card, over NCCL (gloo on the CPU):
+    torchrun --nproc_per_node N -m quadraturefields_tpu_torch.cli.train_fit_sg \\
+        --num_devices N --ckpt_path ... --mesh_path ...
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
+from ..parallel.multihost import maybe_initialize_distributed
 from ..train.stage5_fit_sg import Stage5Config, Stage5Trainer
 
 
@@ -57,15 +62,19 @@ def build_parser():
                         "sample target; 0 = dense rows "
                         "(render/quadrature.py)")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="ray-batch data parallelism over the first N "
-                        "devices (0/1 = single device; not ported yet)")
+                   help="ray-batch data parallelism over N ranks, one "
+                        "process each (0/1 = single device; launch with "
+                        "torchrun --nproc_per_node N; parallel/dp.py)")
     return p
 
 
 def main(argv=None, device: str = "cuda"):
     args = build_parser().parse_args(argv)
     if args.num_devices and args.num_devices > 1:
-        raise NotImplementedError("data parallelism is not ported yet")
+        # join the torchrun launch's process group (a no-op without one;
+        # the trainer then refuses num_devices)
+        maybe_initialize_distributed(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
     scale = 2.0 if args.scene in ("horse", "woolly") else args.scale
     cfg = Stage5Config(
         num_devices=args.num_devices,

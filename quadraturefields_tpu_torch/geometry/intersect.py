@@ -17,6 +17,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from ..parallel.multihost import process_local_slice
 from .meshio import Mesh, load_ply
 from .native import BVH, decimate_vertex_clustering
 
@@ -89,27 +90,37 @@ class MeshIntersection:
         )
         return tri_ids, ts, tri_ids >= 0, uvs
 
-    def face_vertices(self, tri_ids):
-        """[.., 3, 3] world vertices of the given triangles (clamped for
-        -1 padding)."""
-        tri = np.maximum(tri_ids, 0)
-        return self.mesh.vertices[self.mesh.faces[tri]]
-
     def face_vertices_table(self):
         """[F, 3, 3] world vertices per face — uploaded once as the
-        device-resident table the packed-stream renderers gather from
+        device-resident table the renderers gather hit triangles from
         (refreshed on update_vertices by the trainer)."""
         return self.mesh.vertices[self.mesh.faces]
 
 
 class HitPrefetcher:
     """Overlaps host ray casting with the device step: a worker thread
-    keeps `depth` batches of (batch_dict, hits) ready.
+    draws and casts up to `depth` batches ahead of the one the step
+    takes.
+
+    The draws are a function of the step alone, however the thread is
+    scheduled: make_batch(n) draws a batch of n rays, batch k is the
+    worker's k-th draw, and its size is the k-th request. The first
+    `depth` requests are `num_rays`; each next(n) takes the oldest batch
+    and requests one more at n (the size the step's caller set last).
+    update_vertices moves the mesh between two casts; a batch cast
+    before it keeps its rays and is cast again against the new mesh when
+    next() takes it. So the ranks of a data-parallel run, each with its
+    own prefetcher on the same seed, draw the same global batch at every
+    step, mesh updates included.
+
+    `shard` = (world, rank): only the rank's contiguous slice of each
+    global batch (multihost.process_local_slice) is cast, and the hits
+    index the slice's rays; the batch dict stays whole.
 
     Two transport modes:
       * dense (packed_cap=None): items are
-        (batch, tri_ids [R,H], ts [R,H], valid [R,H], fv [R,H,3,3]) —
-        the original layout, kept for the dense parity path and eval;
+        (batch, tri_ids [R,H], ts [R,H], valid [R,H]); the trainers
+        gather the hit triangles' vertices on the device;
       * packed (packed_cap=int): items are
         (batch, slots [cap], tri [cap], ts [cap], total) — the C++
         BVH compacts valid hits into the PackedHits stream layout, so
@@ -117,61 +128,72 @@ class HitPrefetcher:
         happens on device from the resident mesh table.
     """
 
-    def __init__(self, make_batch: Callable[[], dict],
+    def __init__(self, make_batch: Callable[[int], dict],
                  intersector: MeshIntersection, depth: int = 2,
-                 packed_cap: Optional[int] = None):
+                 packed_cap: Optional[int] = None, num_rays: int = 1024,
+                 shard: tuple = (1, 0)):
         self.make_batch = make_batch
         self.intersector = intersector
         self.packed_cap = packed_cap
-        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.shard = shard
+        self._requests: queue.Queue = queue.Queue()
+        self.q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
-        self._pause = threading.Lock()
+        # held by a cast and by a mesh update, so none sees a half-moved
+        # mesh; _version counts the updates
+        self._mesh_lock = threading.Lock()
+        self._version = 0
+        for _ in range(depth):
+            self._requests.put(num_rays)
         self.thread = threading.Thread(target=self._worker, daemon=True)
         self.thread.start()
 
+    def _cast(self, batch):
+        """The hits of the rank's slice of the batch's rays, and the mesh
+        version they were cast against."""
+        rays = batch["rays"]
+        start, size = process_local_slice(rays.origins.shape[0], *self.shard)
+        o = rays.origins[start:start + size]
+        d = rays.viewdirs[start:start + size]
+        with self._mesh_lock:
+            if self.packed_cap is not None:
+                hits = self.intersector.intersect_packed(
+                    o, d, cap=self.packed_cap)
+            else:
+                hits = self.intersector.intersect_rows(o, d)
+            return hits, self._version
+
     def _worker(self):
         while not self._stop.is_set():
-            batch = self.make_batch()
-            rays = batch["rays"]
-            with self._pause:
-                if self.packed_cap is not None:
-                    slots, tri, ts, total = (
-                        self.intersector.intersect_packed(
-                            rays.origins, rays.viewdirs,
-                            cap=self.packed_cap,
-                        )
-                    )
-                    item = (batch, slots, tri, ts, total)
-                else:
-                    tri_ids, ts, valid = self.intersector.intersect_rows(
-                        rays.origins, rays.viewdirs
-                    )
-                    fv = self.intersector.face_vertices(tri_ids)
-                    item = (batch, tri_ids, ts, valid, fv)
-            while not self._stop.is_set():
-                try:
-                    self.q.put(item, timeout=0.5)
-                    break
-                except queue.Full:
-                    continue
+            try:
+                n = self._requests.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            try:
+                batch = self.make_batch(n)
+                self.q.put((batch, *self._cast(batch)))
+            except BaseException as e:  # raised again by next()
+                self.q.put(e)
+                return
 
-    def next(self):
-        return self.q.get()
+    def next(self, num_rays: int):
+        """The next batch and its hits, (batch, *hits); requests one more
+        batch of `num_rays` rays."""
+        self._requests.put(num_rays)
+        item = self.q.get()
+        if isinstance(item, BaseException):
+            raise RuntimeError("the prefetch thread failed") from item
+        batch, hits, version = item
+        if version != self._version:
+            hits, _ = self._cast(batch)
+        return (batch, *hits)
 
-    def drain_and_pause(self):
-        """Flush queued batches (e.g. after a mesh vertex update so no
-        stale hits are consumed)."""
-        with self._pause:
-            while not self.q.empty():
-                try:
-                    self.q.get_nowait()
-                except queue.Empty:
-                    break
+    def update_vertices(self, vertices: np.ndarray):
+        """The mesh's new vertices and the BVH refit, between two casts;
+        the batches already cast are cast again as next() takes them."""
+        with self._mesh_lock:
+            self.intersector.update_vertices(vertices)
+            self._version += 1
 
     def stop(self):
         self._stop.set()
-        while not self.q.empty():
-            try:
-                self.q.get_nowait()
-            except queue.Empty:
-                break

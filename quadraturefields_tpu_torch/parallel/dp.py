@@ -64,11 +64,12 @@ def allreduce_grads(leaves, w, scalars: torch.Tensor) -> torch.Tensor:
     return flat[:n]
 
 
-def psum_count(n: torch.Tensor) -> torch.Tensor:
-    """An integer count summed over the ranks, exactly (int64)."""
-    total = n.detach().to(torch.int64).reshape(1).clone()
-    dist.all_reduce(total, op=dist.ReduceOp.SUM)
-    return total[0]
+def psum_count(n: torch.Tensor, group=None) -> torch.Tensor:
+    """Integer counts (a scalar or a vector) summed exactly (int64) over
+    the ranks of `group` (the default group when None), in n's shape."""
+    total = n.detach().to(torch.int64).reshape(-1).clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total.reshape(n.shape)
 
 
 @torch.no_grad()

@@ -1,6 +1,8 @@
-"""The process group, each rank's device, and each rank's slice of the
-ray batch: the parts of quadraturefields_tpu/parallel/multihost.py that
-stages 1 and 2 use, on torch.distributed.
+"""The process group, each rank's device, each rank's slice of the ray
+batch, and the 2-D layout of data x sample parallelism: the parts of
+quadraturefields_tpu/parallel/multihost.py and of its mesh set-up
+(parallel/dp.py's make_mesh, parallel/sp.py's 2-D Mesh) that the port
+uses, on torch.distributed.
 
 A data-parallel run is one process per rank, launched by torchrun:
 
@@ -15,6 +17,7 @@ and each keeps its own contiguous slice of it (`shard_batch`), as JAX's
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Sequence
 
@@ -117,3 +120,36 @@ def broadcast_object(obj, ranked: bool):
     box = [obj]
     dist.broadcast_object_list(box, src=0)
     return box[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGrid:
+    """A world of dp x sp ranks as rows of sp consecutive ranks, JAX's
+    Mesh(devices.reshape(dp, sp), ("data", "sample")): rank d * sp + s
+    is row d (its ray shard) and place s in the row's ring (its
+    t-window). `sp_group` holds the rank's row, `dp_group` its column
+    (ranks s, sp + s, ...)."""
+
+    dp: int
+    sp: int
+    dp_index: int
+    sp_index: int
+    dp_group: object
+    sp_group: object
+
+
+def make_rank_grid(dp: int, sp: int) -> RankGrid:
+    """The rank's place in a dp x sp grid of the current process group,
+    whose size must be dp * sp. Every rank creates every row's and every
+    column's group, in the same order (torch.distributed's rule for
+    new_group), and keeps its own two."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp < 1 or sp < 1 or dp * sp != world:
+        raise ValueError(f"a {dp} x {sp} grid of ranks needs a process "
+                         f"group of {dp * sp} ranks, not {world}")
+    rows = [dist.new_group(list(range(d * sp, (d + 1) * sp)))
+            for d in range(dp)]
+    cols = [dist.new_group(list(range(s, world, sp))) for s in range(sp)]
+    d, s = divmod(rank, sp)
+    return RankGrid(dp=dp, sp=sp, dp_index=d, sp_index=s, dp_group=cols[s],
+                    sp_group=rows[d])

@@ -2,12 +2,14 @@
 field, rendering at ray-mesh quadrature points.
 
 Port of quadraturefields_tpu/train/stage4_finetune.py (reference
-examples/train_finetune.py) on one device. A step:
+examples/train_finetune.py) on one device or, with num_devices > 1,
+over torch.distributed ranks (parallel/dp.py). A step:
   1. takes the next batch from the host BVH prefetcher: a packed hit
      stream (slots, triangles, depths; 12 B a hit), sliced to the √2
      bucket of its true hit count (pack_slack > 0, the default), or
      dense [R, max_hits] rows and their triangles' vertices
-     (pack_slack 0);
+     (pack_slack 0), whose triangles' vertices are gathered on the
+     device from the resident face table;
   2. renders it with the deformed quadrature (render/quadrature.py) and
      the volumetric twin (the stratified occupancy-grid march of stage
      1), and takes the dual smooth-L1 loss (train_finetune.py:525-528)
@@ -28,6 +30,22 @@ and the barycentric uniforms at the dense [R, H, 3] shape);
 train_one_step draws them from the trainer's generator. The NGP comes
 from the port's own stage-1 checkpoint (`Stage1Trainer.save`) or is
 handed in; orbax checkpoints of the JAX package are not read.
+
+Data parallelism (JAX's make_dp_finetune_train_step): every rank holds
+the fields, the caches and the mesh whole, draws the same global batch
+(its prefetcher follows the step, geometry/intersect.py) and casts only
+its slice of the rays, packed to its share of the hit budget. The
+jitter and the barycentric uniforms are drawn at the global shape from
+the generator and sliced, so a DP run's draws equal the single device's
+(JAX folds the twin's stratified key per rank). A rank's loss is its
+slice's: the ray means and, weighted by its share of the rendered hits,
+the regularizer, so that their mean over the ranks (pmean) is the
+single device's loss; JAX pmeans each rank's hit mean of the
+regularizer, which differs where the ranks' hit counts do. Each rank
+scatters its hits' deformation into zero per-face buffers; one
+all-reduce a step sums them with the gradients (allreduce_grads), and
+one before the forward sums the hit counts. Every rank runs Adam and
+the mesh update on the same sums; rank 0 alone evaluates and writes.
 """
 from __future__ import annotations
 
@@ -53,6 +71,20 @@ from ..ops.grid import (
     occ_grid_update,
     resolve_coarse_stride,
 )
+from ..parallel.dp import (
+    allreduce_grads,
+    broadcast_params,
+    local_rcfg,
+    make_dp_occ_eval,
+    psum_count,
+)
+from ..parallel.multihost import (
+    broadcast_object,
+    on_rank0,
+    rank_device,
+    shard_batch,
+    world_and_rank,
+)
 from ..render.quadrature import (
     HitRows,
     mesh_accumulate_deformation,
@@ -72,7 +104,7 @@ from .stage1_ngp import MIPNERF360_UNBOUNDED_SCENES, _as_leaf_params, _leaves
 @dataclasses.dataclass
 class Stage4Config:
     """The JAX trainer's config, field for field. `num_devices` > 1
-    (data parallelism) is not ported yet; the trainer refuses it."""
+    trains over that many torch.distributed ranks (parallel/dp.py)."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -241,17 +273,23 @@ def _ngp_rgb_sigma(p, x, d, a, c):
 
 
 class Stage4Trainer:
-    """The stage-4 trainer on one device. `params` is {"rf": the NGP's
-    leaves, "field": the deformation field's}; after assigning it (e.g.
-    weights carried across with utils/convert.py) call
+    """The stage-4 trainer on one device, or with cfg.num_devices > 1 on
+    each rank of a torch.distributed group of that size (a device "cuda"
+    without an index is then cuda:LOCAL_RANK). `params` is {"rf": the
+    NGP's leaves, "field": the deformation field's}; after assigning it
+    (e.g. weights carried across with utils/convert.py) call
     `_make_optimizer`."""
 
     def __init__(self, cfg: Stage4Config, ngp_params=None,
                  occ_state: Optional[OccGridState] = None,
                  mesh: Optional[Mesh] = None, train_dataset=None,
                  test_dataset=None, device="cuda"):
-        if cfg.num_devices and cfg.num_devices > 1:
-            raise NotImplementedError("data parallelism is not ported yet")
+        self._dp = bool(cfg.num_devices and cfg.num_devices > 1)
+        if self._dp:
+            self.world, self.rank = world_and_rank(cfg.num_devices)
+            device = rank_device(device)
+        else:
+            self.world, self.rank = 1, 0
         # full-f32 matmuls: the NGP's bf16-operand MLP keeps f32 products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -291,6 +329,8 @@ class Stage4Trainer:
         self.cache_d = torch.zeros((n_faces, 3), device=self.device)
         self.cache_w = torch.full((n_faces,), 1e-8, device=self.device)
         self._packed = cfg.pack_slack > 0
+        # a rank's share of the packed-hit budget (JAX's shard cap)
+        self.pack_cap = -(-cfg.pack_cap // self.world // 256) * 256
         self.face_verts_dev = self._face_verts_table()
 
         # one generator for the field init, then every step's noise
@@ -303,6 +343,8 @@ class Stage4Trainer:
         }
         self.step = 0
         self._make_optimizer()
+        if self._dp:
+            broadcast_params(_leaves(self.params))
 
         if train_dataset is not None:
             self.train_dataset = train_dataset
@@ -321,12 +363,21 @@ class Stage4Trainer:
                 seed=cfg.seed,
             )
         self.test_dataset = test_dataset
+        # the ray batch the dynamic batch asks for next
+        self.num_rays = int(self.train_dataset.num_rays)
         # the worker thread casts rays with numpy and the C++ BVH only;
         # every upload happens on this thread
         self.prefetcher = HitPrefetcher(
-            self.train_dataset.fetch_train_batch, self.mesh_intersect,
-            depth=2, packed_cap=cfg.pack_cap if self._packed else None,
+            self._draw_batch, self.mesh_intersect, depth=2,
+            packed_cap=self.pack_cap if self._packed else None,
+            num_rays=self.num_rays, shard=(self.world, self.rank),
         )
+
+    def _draw_batch(self, num_rays: int) -> dict:
+        """The loader's next batch at num_rays rays (the prefetch
+        thread's draw, the only caller)."""
+        self.train_dataset.update_num_rays(num_rays)
+        return self.train_dataset.fetch_train_batch()
 
     def _make_optimizer(self):
         """One Adam over the rf and field leaves (eps 1e-15, no weight
@@ -341,7 +392,12 @@ class Stage4Trainer:
 
     def _face_verts_table(self) -> torch.Tensor:
         return torch.as_tensor(self.mesh_intersect.face_vertices_table(),
-                               device=self.device)
+                               dtype=torch.float32, device=self.device)
+
+    def _face_rows(self, tri_ids: torch.Tensor) -> torch.Tensor:
+        """[..., 3, 3] vertices of dense rows' hit triangles (a -1 pad
+        reads face 0), gathered from the face table on the device."""
+        return self.face_verts_dev[tri_ids.clamp_min(0).to(torch.int64)]
 
     def _to_device(self, a, dtype=np.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype), device=self.device)
@@ -352,6 +408,8 @@ class Stage4Trainer:
                                   self.ngp_cfg)
             return d[..., 0] * self.cfg.eff_render_step_size
 
+        if self._dp:
+            occ_eval_fn = make_dp_occ_eval(occ_eval_fn)
         with torch.no_grad():
             return occ_grid_update(
                 self.occ_state, step, occ_eval_fn, self.occ_cfg,
@@ -360,12 +418,15 @@ class Stage4Trainer:
             )
 
     def _loss_fn(self, params, origins, viewdirs, pixels, bkgd, hit_args,
-                 t_jitter, bary_uniforms, freeze_rf: bool):
+                 t_jitter, bary_uniforms, freeze_rf: bool, rcfg=None,
+                 reg_weight=1.0):
         """(loss, aux) of one batch. hit_args: packed -> (slots, tri, ts,
         num_valid, face_verts_table); dense -> (tri_ids, ts, valid,
         face_vertices [R, H, 3, 3]). t_jitter [R] are the twin's
         stratified uniforms, bary_uniforms [R, H, 3] the barycentric
-        ones."""
+        ones; rcfg the twin's render config (the trainer's unless given:
+        a rank's share of the budget), reg_weight the regularizer's
+        factor (a rank's share of the hits)."""
         cfg = self.cfg
         render_kwargs = dict(
             ngp_forward_fn=_ngp_rgb_sigma,
@@ -400,7 +461,7 @@ class Stage4Trainer:
                                     and not freeze_rf):
             vol = render_rays_occgrid(
                 params["rf"], self.aabb, self.ngp_cfg, self.occ_state,
-                origins, viewdirs, self.rcfg, render_bkgd=bkgd,
+                origins, viewdirs, rcfg or self.rcfg, render_bkgd=bkgd,
                 stratified=True, t_jitter=t_jitter,
             )
         # the quadrature term leaves out rays the cap truncated; the twin
@@ -408,39 +469,79 @@ class Stage4Trainer:
         rgb_discrete = smooth_l1_loss(out["rgb"], pixels,
                                       ray_mask=out.get("ray_mask"))
         rgb_smooth = smooth_l1_loss(vol.rgb, pixels)
-        loss = (rgb_discrete + rgb_smooth) / 2.0 + out["reg"]
+        loss = (rgb_discrete + rgb_smooth) / 2.0 + reg_weight * out["reg"]
         return loss, out
+
+    def _hit_counts(self, hit_args, n_rays: int) -> torch.Tensor:
+        """[rendered hits, true hit demand] of a batch's hit_args, int64
+        on the device."""
+        if self._packed:
+            slots, _, _, total, _ = hit_args
+            rendered = (slots < n_rays * self.cfg.max_hits).sum()
+            demand = torch.as_tensor(total, device=slots.device)
+        else:
+            rendered = demand = hit_args[2].sum()
+        return torch.stack([rendered, demand]).to(torch.int64)
 
     def _train_step_impl(self, origins, viewdirs, pixels, bkgd, hit_args,
                          t_jitter, bary_uniforms, freeze_rf: bool):
         """Loss, backward, one Adam update (the schedule steps after it)
         and the per-face deformation scatter; returns (loss, n_hits,
-        rgb MSE)."""
+        rgb MSE). Over ranks every argument is the rank's slice of the
+        global batch (train_one_step cuts it), the twin runs at the
+        rank's share of the budget, and the loss, MSE, gradients,
+        deformation sums and hit counts are those of the global batch."""
         self.optimizer.zero_grad(set_to_none=True)
+        rcfg, reg_weight = self.rcfg, 1.0
+        if self._dp:
+            rcfg = local_rcfg(rcfg, self.world)
+            counts = self._hit_counts(hit_args, origins.shape[0])
+            totals = psum_count(counts)
+            # the pmean of the ranks' losses then holds the regularizer
+            # over all the rendered hits, as one device's does
+            reg_weight = counts[0] * self.world / totals[0].clamp_min(1)
         loss, out = self._loss_fn(self.params, origins, viewdirs, pixels,
                                   bkgd, hit_args, t_jitter, bary_uniforms,
-                                  freeze_rf)
+                                  freeze_rf, rcfg, reg_weight)
         loss.backward()
-        # frozen, the rf gets no gradient: zeros make Adam count the step
-        # for it, as optax's one shared count does
-        for p in _leaves(self.params):
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        mse = ((out["rgb"].detach() - pixels) ** 2).mean()
+        n_faces = self.mesh_intersect.n_faces
+        if self._dp:
+            add_d, add_w = mesh_accumulate_deformation(
+                torch.zeros_like(self.cache_d), torch.zeros_like(self.cache_w),
+                out["dh"], out["weights"], out["tri_ids"], out["valid"],
+                n_faces)
+            sums = allreduce_grads(
+                _leaves(self.params), 1.0 / self.world,
+                torch.cat([torch.stack([loss, mse]) / self.world,
+                           add_d.reshape(-1), add_w]))
+            loss, mse = sums[0], sums[1]
+            self.cache_d = self.cache_d + sums[2:2 + 3 * n_faces].view(-1, 3)
+            self.cache_w = self.cache_w + sums[2 + 3 * n_faces:]
+            n_hits = totals[1]
+        else:
+            # frozen, the rf gets no gradient: zeros make Adam count the
+            # step for it, as optax's one shared count does
+            for p in _leaves(self.params):
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.cache_d, self.cache_w = mesh_accumulate_deformation(
+                self.cache_d, self.cache_w, out["dh"], out["weights"],
+                out["tri_ids"], out["valid"], n_faces,
+            )
+            n_hits = out["n_hits"]
         self.optimizer.step()
         self.scheduler.step()
-        self.cache_d, self.cache_w = mesh_accumulate_deformation(
-            self.cache_d, self.cache_w, out["dh"], out["weights"],
-            out["tri_ids"], out["valid"], self.mesh_intersect.n_faces,
-        )
-        mse = ((out["rgb"].detach() - pixels) ** 2).mean()
-        return loss.detach(), out["n_hits"], mse
+        return loss, n_hits, mse
 
     def _hit_args(self, item):
         """(batch, device hit_args) of one prefetcher item; a packed
-        stream is sliced to the bucket of its true hit count."""
+        stream is sliced to the bucket of its true hit count, dense rows
+        get their triangles' vertices from the face table."""
         if self._packed:
             batch, slots, tri, ts, total = item
-            b = snap_pack_cap(total, self.cfg.pack_cap)
+            b = snap_pack_cap(total, self.pack_cap)
             return batch, (
                 self._to_device(slots[:b], np.int32),
                 self._to_device(tri[:b], np.int32),
@@ -448,10 +549,10 @@ class Stage4Trainer:
                 min(total, np.iinfo(np.int32).max),
                 self.face_verts_dev,
             )
-        batch, tri_ids, ts, valid, fv = item
-        return batch, (self._to_device(tri_ids, np.int32),
-                       self._to_device(ts), self._to_device(valid, bool),
-                       self._to_device(fv))
+        batch, tri_ids, ts, valid = item
+        tri_ids = self._to_device(tri_ids, np.int32)
+        return batch, (tri_ids, self._to_device(ts),
+                       self._to_device(valid, bool), self._face_rows(tri_ids))
 
     def train_one_step(self):
         """One step; returns (loss, true hit count, rgb MSE of the
@@ -460,44 +561,49 @@ class Stage4Trainer:
         step = self.step
         if step % self.occ_cfg.update_interval == 0:
             self.occ_state = self._occ_update(step)
-        batch, hit_args = self._hit_args(self.prefetcher.next())
-        origins = self._to_device(batch["rays"].origins)
-        viewdirs = self._to_device(batch["rays"].viewdirs)
-        pixels = self._to_device(batch["pixels"])
+        batch, hit_args = self._hit_args(self.prefetcher.next(self.num_rays))
+        arrays = [self._to_device(a) for a in (
+            batch["rays"].origins, batch["rays"].viewdirs, batch["pixels"])]
         bkgd = self._to_device(batch["color_bkgd"])
-        n_rays = origins.shape[0]
+        n_rays = arrays[0].shape[0]
+        # drawn at the global batch's shape on every rank, then sliced:
+        # the ranks' generators stay in one state
         t_jitter = torch.rand((n_rays,), generator=self.generator,
                               device=self.device)
         bary = torch.rand((n_rays, cfg.max_hits, 3),
                           generator=self.generator, device=self.device)
+        arrays += [t_jitter, bary]
+        if self._dp:
+            arrays = shard_batch(arrays, self.world, self.rank)
+        origins, viewdirs, pixels, t_jitter, bary = arrays
         loss, n_hits, mse = self._train_step_impl(
             origins, viewdirs, pixels, bkgd, hit_args, t_jitter, bary,
             freeze_rf=step < cfg.freeze_rf_steps)
         nh = int(n_hits)
         if nh > 0:
-            num_rays = int(self.train_dataset.num_rays
-                           * cfg.target_sample_batch_size / float(nh))
-            self.train_dataset.update_num_rays(
-                bucket_num_rays(num_rays, max_rays=cfg.max_num_rays))
+            self.num_rays = bucket_num_rays(
+                int(self.num_rays * cfg.target_sample_batch_size / float(nh)),
+                max_rays=cfg.max_num_rays)
         self.step += 1
         return loss, nh, mse
 
     def apply_mesh_update(self, out_dir=None):
         """The vertex update, BVH refit, caches reset and face table
-        refresh, and mesh.ply under out_dir when given."""
+        refresh, and mesh.ply under out_dir when given (over ranks, every
+        rank updates its own copy from the same caches, and rank 0 alone
+        writes)."""
         new_vertices = mesh_update_vertices(
             self.mesh_intersect.mesh.vertices,
             self.mesh_intersect.mesh.faces,
             self.cache_d, self.cache_w, self.cfg.scaling,
         )
-        self.prefetcher.drain_and_pause()
-        self.mesh_intersect.update_vertices(new_vertices.astype(np.float32))
+        self.prefetcher.update_vertices(new_vertices.astype(np.float32))
         n_faces = self.mesh_intersect.n_faces
         self.cache_d = torch.zeros((n_faces, 3), device=self.device)
         self.cache_w = torch.full((n_faces,), 1e-8, device=self.device)
         self.face_verts_dev = self._face_verts_table()
         if out_dir:
-            save_ply(os.path.join(out_dir, "mesh.ply"),
+            on_rank0(self._dp, save_ply, os.path.join(out_dir, "mesh.ply"),
                      self.mesh_intersect.mesh)
 
     @torch.no_grad()
@@ -516,14 +622,13 @@ class Stage4Trainer:
         for i in range(0, n_pad, chunk):
             oc, dc = o[i:i + chunk], d[i:i + chunk]
             tri_ids, ts, valid = self.mesh_intersect.intersect_rows(oc, dc)
-            fv = self.mesh_intersect.face_vertices(tri_ids)
+            tri_ids = self._to_device(tri_ids, np.int32)
             out = render_finetune_rows(
                 self.params["rf"], self.params["field"],
-                HitRows(tri_ids=self._to_device(tri_ids, np.int32),
-                        ts=self._to_device(ts),
+                HitRows(tri_ids=tri_ids, ts=self._to_device(ts),
                         valid=self._to_device(valid, bool)),
                 self._to_device(oc), self._to_device(dc),
-                self._to_device(fv), self.aabb, self.ngp_cfg,
+                self._face_rows(tri_ids), self.aabb, self.ngp_cfg,
                 self.field_cfg, ngp_forward_fn=_ngp_rgb_sigma,
                 field_apply_fn=field_apply, scaling=self.cfg.scaling,
                 render_step_size=self.cfg.eff_render_step_size,
@@ -559,46 +664,55 @@ class Stage4Trainer:
             "lpips": float(np.mean(lpipss)),
         }
 
+    def _evaluate_test(self):
+        """evaluate() of the test views (over ranks rank 0's, broadcast
+        to every rank)."""
+        return broadcast_object(on_rank0(
+            self._dp, self.evaluate, self.test_dataset, self.cfg.eval_views),
+            self._dp)
+
     def train(self, log_fn=print):
         """Steps 0..max_steps with logging, the before/after evaluations
         around each mesh update and checkpoints, then the final mesh
-        update and checkpoint; stops the prefetcher at the end."""
+        update and checkpoint; stops the prefetcher at the end. Over
+        ranks, rank 0 alone logs, evaluates and writes."""
         cfg = self.cfg
         out_dir = os.path.join(cfg.root, "results", cfg.scene, cfg.exp_name)
         ckpt_dir = os.path.join(cfg.root, "ckpts", cfg.scene, cfg.exp_name)
-        os.makedirs(out_dir, exist_ok=True)
-        os.makedirs(ckpt_dir, exist_ok=True)
+        ckpt = os.path.join(ckpt_dir, "finetune.pt")
+        if self.rank == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            os.makedirs(ckpt_dir, exist_ok=True)
         tic = time.time()
         try:
             while self.step <= cfg.max_steps:
                 step = self.step
                 loss, nh, mse = self.train_one_step()
-                if step % cfg.log_every == 0:
+                if step % cfg.log_every == 0 and self.rank == 0:
                     log_fn(
                         f"elapsed={time.time() - tic:.1f}s | step={step} | "
                         f"loss={float(loss):.5f} | "
                         f"psnr={-10.0 * float(torch.log10(mse)):.2f} | "
-                        f"hits={nh} | num_rays={self.train_dataset.num_rays}"
+                        f"hits={nh} | num_rays={self.num_rays}"
                     )
                 if step > 0 and step % cfg.mesh_update_every == 0:
                     # the before/after evaluations around the vertex
                     # update (reference train_finetune.py:696-743)
                     results = {}
                     if self.test_dataset is not None:
-                        results["before"] = self.evaluate(
-                            self.test_dataset, n_views=cfg.eval_views)
+                        results["before"] = self._evaluate_test()
                     self.apply_mesh_update(out_dir)
                     if self.test_dataset is not None:
-                        results["after"] = self.evaluate(
-                            self.test_dataset, n_views=cfg.eval_views)
-                        log_fn(f"step={step} mesh update: {results}")
-                        with open(os.path.join(out_dir, "log.txt"),
-                                  "a") as f:
-                            f.write(f"step: {step}, {results}\n")
+                        results["after"] = self._evaluate_test()
+                        if self.rank == 0:
+                            log_fn(f"step={step} mesh update: {results}")
+                            with open(os.path.join(out_dir, "log.txt"),
+                                      "a") as f:
+                                f.write(f"step: {step}, {results}\n")
                 if step > 0 and step % cfg.ckpt_every == 0:
-                    self.save(os.path.join(ckpt_dir, "finetune.pt"))
+                    on_rank0(self._dp, self.save, ckpt)
             self.apply_mesh_update(out_dir)
-            self.save(os.path.join(ckpt_dir, "finetune.pt"))
+            on_rank0(self._dp, self.save, ckpt)
         finally:
             self.prefetcher.stop()
 

@@ -1,7 +1,8 @@
 """Stage 5: fit a spherical-Gaussian appearance model at mesh hits.
 
 Port of quadraturefields_tpu/train/stage5_fit_sg.py (reference
-examples/train_fit_sg.py) on one device. The SG model (the NGP with the
+examples/train_fit_sg.py) on one device or, with num_devices > 1, over
+torch.distributed ranks. The SG model (the NGP with the
 SG head: diffuse(3) + num_lobes x [axis(3), lambda(1), color(3)])
 learns rgb at the ray-mesh hits of the stage-4 mesh; the density comes
 from the frozen stage-4 radiance field, queried without a graph
@@ -24,6 +25,17 @@ density, as the JAX trainer does. The teacher and the occupancy come
 from the port's stage-4 checkpoint (`Stage4Trainer.save`'s
 finetune.pt: radiance_field, occs, binaries) or are handed in; orbax
 checkpoints of the JAX package are not read.
+
+Data parallelism (JAX's make_dp_fit_sg_train_step): every rank holds
+the SG model and the teacher whole, draws the same global batch (its
+prefetcher follows the step, geometry/intersect.py), casts only its
+slice of the rays and packs it to its share of the hit budget. Its loss
+is its slice's masked ray mean; one all-reduce (allreduce_grads) takes
+the mean of the losses and gradients over the ranks (pmean: the single
+device's, the slices being equal, where no rank's cap truncates), and
+one sums the hit counts. Every rank refreshes the occupancy grid from
+the frozen teacher alike, as JAX does, and runs Adam on the same sums;
+rank 0 alone writes.
 """
 from __future__ import annotations
 
@@ -41,6 +53,9 @@ from ..geometry.meshio import Mesh
 from ..models.ngp import NGPConfig, ngp_init, ngp_query_density
 from ..ops.grid import OccGridConfig, OccGridState, occ_grid_init, \
     occ_grid_update
+from ..parallel.dp import allreduce_grads, broadcast_params, psum_count
+from ..parallel.multihost import on_rank0, rank_device, shard_batch, \
+    world_and_rank
 from ..render.quadrature import (
     HitRows,
     packed_hits_from_host,
@@ -58,7 +73,7 @@ from .stage4_finetune import _ngp_rgb_sigma
 @dataclasses.dataclass
 class Stage5Config:
     """The JAX trainer's config, field for field. `num_devices` > 1
-    (data parallelism) is not ported yet; the trainer refuses it."""
+    trains over that many torch.distributed ranks (parallel/dp.py)."""
 
     scene: str = "lego"
     data_root: str = "data/nerf_synthetic"
@@ -160,16 +175,22 @@ class Stage5Config:
 
 
 class Stage5Trainer:
-    """The stage-5 trainer on one device. `sg_params` are the SG model's
-    leaves; after assigning them (e.g. weights carried across with
-    utils/convert.py) call `_make_optimizer`."""
+    """The stage-5 trainer on one device, or with cfg.num_devices > 1 on
+    each rank of a torch.distributed group of that size (a device "cuda"
+    without an index is then cuda:LOCAL_RANK). `sg_params` are the SG
+    model's leaves; after assigning them (e.g. weights carried across
+    with utils/convert.py) call `_make_optimizer`."""
 
     def __init__(self, cfg: Stage5Config, teacher_params=None,
                  occ_state: Optional[OccGridState] = None,
                  mesh: Optional[Mesh] = None, train_dataset=None,
                  device="cuda"):
-        if cfg.num_devices and cfg.num_devices > 1:
-            raise NotImplementedError("data parallelism is not ported yet")
+        self._dp = bool(cfg.num_devices and cfg.num_devices > 1)
+        if self._dp:
+            self.world, self.rank = world_and_rank(cfg.num_devices)
+            device = rank_device(device)
+        else:
+            self.world, self.rank = 1, 0
         # full-f32 matmuls: the bf16-operand MLPs keep f32 products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -209,6 +230,8 @@ class Stage5Trainer:
             ngp_init(self.generator, self.sg_cfg, self.device))
         self.step = 0
         self._make_optimizer()
+        if self._dp:
+            broadcast_params(_leaves(self.sg_params))
 
         if train_dataset is not None:
             self.train_dataset = train_dataset
@@ -227,12 +250,23 @@ class Stage5Trainer:
                 seed=cfg.seed,
             )
         # the packed host transport: 12 B a hit instead of dense
-        # [R, max_hits] rows (stage 5 needs no face vertices)
+        # [R, max_hits] rows (stage 5 needs no face vertices), each rank
+        # packing to its share of the budget (JAX's shard cap)
         self._packed = cfg.pack_slack > 0
+        self.pack_cap = -(-cfg.pack_cap // self.world // 256) * 256
+        # the ray batch the dynamic batch asks for next
+        self.num_rays = int(self.train_dataset.num_rays)
         self.prefetcher = HitPrefetcher(
-            self.train_dataset.fetch_train_batch, self.mesh_intersect,
-            depth=2, packed_cap=cfg.pack_cap if self._packed else None,
+            self._draw_batch, self.mesh_intersect, depth=2,
+            packed_cap=self.pack_cap if self._packed else None,
+            num_rays=self.num_rays, shard=(self.world, self.rank),
         )
+
+    def _draw_batch(self, num_rays: int) -> dict:
+        """The loader's next batch at num_rays rays (the prefetch
+        thread's draw, the only caller)."""
+        self.train_dataset.update_num_rays(num_rays)
+        return self.train_dataset.fetch_train_batch()
 
     def _make_optimizer(self):
         """Adam over the SG leaves (eps 1e-15, no weight decay) on the
@@ -290,29 +324,38 @@ class Stage5Trainer:
 
     def _train_step_impl(self, origins, viewdirs, pixels, bkgd, hit_args):
         """Loss, backward, one Adam update (the schedule steps after
-        it); returns (loss, n_hits, rgb MSE)."""
+        it); returns (loss, n_hits, rgb MSE). Over ranks every argument
+        is the rank's slice of the global batch (train_one_step cuts
+        it), and the loss, MSE and gradients are averaged and the hit
+        counts summed over the ranks before Adam."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, (rgb, n_hits) = self._loss_fn(self.sg_params, origins,
                                             viewdirs, pixels, bkgd, hit_args)
         loss.backward()
+        loss = loss.detach()
+        mse = ((rgb.detach() - pixels) ** 2).mean()
+        if self._dp:
+            loss, mse = allreduce_grads(
+                _leaves(self.sg_params), 1.0 / self.world,
+                torch.stack([loss, mse]) / self.world)
+            n_hits = psum_count(n_hits)
         self.optimizer.step()
         self.scheduler.step()
-        mse = ((rgb.detach() - pixels) ** 2).mean()
-        return loss.detach(), n_hits, mse
+        return loss, n_hits, mse
 
     def _hit_args(self, item):
         """(batch, device hit_args) of one prefetcher item; a packed
         stream is sliced to the bucket of its true hit count."""
         if self._packed:
             batch, slots, tri, ts, total = item
-            b = snap_pack_cap(total, self.cfg.pack_cap)
+            b = snap_pack_cap(total, self.pack_cap)
             return batch, (
                 self._to_device(slots[:b], np.int32),
                 self._to_device(tri[:b], np.int32),
                 self._to_device(ts[:b]),
                 min(total, np.iinfo(np.int32).max),
             )
-        batch, tri_ids, ts, valid, _ = item
+        batch, tri_ids, ts, valid = item
         return batch, (self._to_device(tri_ids, np.int32),
                        self._to_device(ts), self._to_device(valid, bool))
 
@@ -322,18 +365,18 @@ class Stage5Trainer:
         step = self.step
         if step % self.occ_cfg.update_interval == 0:
             self.occ_state = self._occ_update(step)
-        batch, hit_args = self._hit_args(self.prefetcher.next())
+        batch, hit_args = self._hit_args(self.prefetcher.next(self.num_rays))
+        arrays = [self._to_device(a) for a in (
+            batch["rays"].origins, batch["rays"].viewdirs, batch["pixels"])]
+        if self._dp:
+            arrays = shard_batch(arrays, self.world, self.rank)
         loss, n_hits, mse = self._train_step_impl(
-            self._to_device(batch["rays"].origins),
-            self._to_device(batch["rays"].viewdirs),
-            self._to_device(batch["pixels"]),
-            self._to_device(batch["color_bkgd"]), hit_args)
+            *arrays, self._to_device(batch["color_bkgd"]), hit_args)
         nh = int(n_hits)
         if nh > 0:
-            num_rays = int(self.train_dataset.num_rays
-                           * cfg.target_sample_batch_size / float(nh))
-            self.train_dataset.update_num_rays(
-                bucket_num_rays(num_rays, max_rays=cfg.max_num_rays))
+            self.num_rays = bucket_num_rays(
+                int(self.num_rays * cfg.target_sample_batch_size / float(nh)),
+                max_rays=cfg.max_num_rays)
         self.step += 1
         return loss, nh, mse
 
@@ -368,27 +411,30 @@ class Stage5Trainer:
     def train(self, log_fn=print):
         """Steps 0..max_steps with logging and checkpoints, then the
         final checkpoint (ckpts/SCENE/EXP/fit_sg.pt); stops the
-        prefetcher at the end."""
+        prefetcher at the end. Over ranks, rank 0 alone logs and
+        writes."""
         cfg = self.cfg
         out_dir = os.path.join(cfg.root, "results", cfg.scene, cfg.exp_name)
         ckpt_dir = os.path.join(cfg.root, "ckpts", cfg.scene, cfg.exp_name)
-        os.makedirs(out_dir, exist_ok=True)
-        os.makedirs(ckpt_dir, exist_ok=True)
+        ckpt = os.path.join(ckpt_dir, "fit_sg.pt")
+        if self.rank == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            os.makedirs(ckpt_dir, exist_ok=True)
         tic = time.time()
         try:
             while self.step <= cfg.max_steps:
                 step = self.step
                 loss, nh, mse = self.train_one_step()
-                if step % cfg.log_every == 0:
+                if step % cfg.log_every == 0 and self.rank == 0:
                     log_fn(
                         f"elapsed={time.time() - tic:.1f}s | step={step} | "
                         f"loss={float(loss):.5f} | "
                         f"psnr={-10.0 * float(torch.log10(mse)):.2f} | "
-                        f"hits={nh} | num_rays={self.train_dataset.num_rays}"
+                        f"hits={nh} | num_rays={self.num_rays}"
                     )
                 if step > 0 and step % cfg.ckpt_every == 0:
-                    self.save(os.path.join(ckpt_dir, "fit_sg.pt"))
-            self.save(os.path.join(ckpt_dir, "fit_sg.pt"))
+                    on_rank0(self._dp, self.save, ckpt)
+            on_rank0(self._dp, self.save, ckpt)
         finally:
             self.prefetcher.stop()
 

@@ -349,9 +349,10 @@ def test_cli_chain_stage1_to_stage4(tmp_path, monkeypatch):
     (run_nerfsynthetic_finetune.sh's flags at tiny widths, 4 steps, 2
     frozen, a mesh update at step 2). Stage 4 writes mesh.ply and
     finetune.pt; a new trainer loads the checkpoint (both fields, Adam,
-    the step) and steps on; --num_devices > 1 is refused. No flag sets
-    the occupancy grid, the freeze or the update interval, so the
-    configs the CLIs build get them patched in (a 32^3 grid)."""
+    the step) and steps on; --num_devices 2 without a process group is
+    refused. No flag sets the occupancy grid, the freeze or the update
+    interval, so the configs the CLIs build get them patched in (a 32^3
+    grid)."""
     from quadraturefields_tpu_torch.cli import downsample_mesh as tcli_ds
     from quadraturefields_tpu_torch.cli import marching_cubes as tcli_mc
     from quadraturefields_tpu_torch.cli import train_field as tcli2
@@ -418,7 +419,8 @@ def test_cli_chain_stage1_to_stage4(tmp_path, monkeypatch):
         assert np.isfinite(float(loss)) and nh > 0 and other.step == 5
     finally:
         other.prefetcher.stop()
-    with pytest.raises(NotImplementedError):
+    # no torchrun process group: the trainer refuses num_devices 2
+    with pytest.raises(RuntimeError, match="torchrun"):
         tcli4.main(argv + ["--num_devices", "2"], device="cpu")
 
 

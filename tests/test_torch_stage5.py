@@ -448,7 +448,7 @@ def test_cli_chain_stage4_to_stage5(tmp_path, monkeypatch):
     (run_nerfsynthetic_fit_sg.sh's flags at tiny widths, both hit
     transports): it writes fit_sg.pt with the SG model (45 outputs at 6
     lobes; here 3 + 7 * 2), the teacher's occupancy and the step;
-    --num_devices > 1 is refused."""
+    --num_devices 2 without a process group is refused."""
     from quadraturefields_tpu_torch.cli import train_fit_sg as tcli5
 
     data, runs, ckpt4, mesh4 = stage4_checkpoint(tmp_path, monkeypatch)
@@ -464,6 +464,7 @@ def test_cli_chain_stage4_to_stage5(tmp_path, monkeypatch):
         assert torch.isfinite(state["radiance_field"]["table"]).all()
         assert state["binaries"].shape == (32, 32, 32)
         os.remove(path)
-    with pytest.raises(NotImplementedError):
+    # no torchrun process group: the trainer refuses num_devices 2
+    with pytest.raises(RuntimeError, match="torchrun"):
         tcli5.main(["--ckpt_path", ckpt4, "--mesh_path", mesh4,
                     "--num_devices", "2"], device="cpu")
