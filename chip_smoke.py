@@ -9,10 +9,11 @@
                                       # at N^3 (the CLI's default: 1024),
                                       # and phase 8's stage 3 run on it
     python3 chip_smoke.py --baseline DIR
-        # and time K8's interface, K1's stream interface, K6's route and
-        # K3 of another checkout at DIR (e.g. a parent commit unpacked
-        # with `git archive`) beside this one's, in turns, on the same
-        # inputs
+        # and time K8's interface, K1's stream interface and stochastic
+        # form, K6's route and K3 of another checkout at DIR (e.g. a
+        # parent commit unpacked with `git archive`) beside this one's,
+        # in turns, on the same inputs (K1's stochastic form also in
+        # situ, in phase 10's traced steps)
 
 Phases, run in the order 1-5, 11, 7, 8, 12, 13, 9, 10, 14, 15, 6 (any
 failure raises and exits non-zero):
@@ -33,10 +34,11 @@ failure raises and exits non-zero):
      (each fused from 2^20 points and from its stream, K7 and K5 also at
      F = 2; K5 fused tet and cube, f32 and bf16sim, and K6 fused beside
      the stream routes they replaced; K6 fused also on grid knots, upper
-     faces and rank ties), and K1's stochastic form at 2^18 points (its
-     picks against the plain version's, its sum against the float64
-     plain sum of the rows it picked, index_add_ of those rows as the
-     library yardstick);
+     faces and rank ties), and K1's stochastic form at 2^18 uniform
+     points and at 2^18 ray-ordered slots with a padded tail, tet and
+     cube (its picks against the plain version's, its sum against the
+     float64 plain sum of the rows it picked, index_add_ of those rows
+     as the library yardstick, its gradient's zeroing alone);
   3. the evaluation path: render fixture views at full model width
      (Stage1Config defaults, seeded random weights) through
      Stage1Trainer.evaluate with the one-shot renderer, count each
@@ -60,9 +62,9 @@ failure raises and exits non-zero):
   6. K1, K2, K3, K5, K6, K7 and K8 again, on the main paths' own inputs
      captured in phases 3-5 and 7-13 (it runs last; K2, K1 and K3 on a
      360 step; K1's stream interface and K5's stream entry on the
-     second-order streams of phase 13; K1's stochastic form
-     on phase 4's corner step beside the exact K1, and on a phase-10
-     step): the positions of
+     second-order streams of phase 13; K1's stochastic form, tet and
+     cube, on phase 4's corner step beside the exact K1, and on a
+     phase-10 step): the positions of
      one eval chunk (all its slots, and its valid samples alone), of one
      corner training step, of one stage-2 step on the 317 MB field
      table, of one joint stage-4 step on the 813 MB deformation table,
@@ -160,7 +162,9 @@ failure raises and exits non-zero):
      within 1e-4 of the CPU's on one view (and its time a view); one
      step against the plain path (compare_step) and its picks equal the
      plain version's on every (point, level); a 3-step device trace
-     (utils/profiling.device_trace) names the kernel; one forward of the
+     (utils/profiling.device_trace) names the kernel and gives its
+     device time a step (with --baseline, the other checkout's kernel
+     in two more traced turns); one forward of the
      vanilla NeRF and T-NeRF MLPs on the card against the CPU within
      1e-5; ms/step, rays/s and samples/s beside phase 4's.
  11. the unbounded 360 path ("train_360"): Stage1Trainer.train at
@@ -473,17 +477,15 @@ def pair_route(x, g, cfg, stream_kernel):
 
 class Baseline:
     """The kernels this checkout redesigned, as another checkout's csrc/
-    builds them (`--baseline DIR`): K1's stream entry and K6's stream
-    entry, launched with the arguments of this checkout's wrappers,
-    whose C interfaces they share, and the other checkout's interfaces
-    built on them: K8's (PyTorch entries and bf16 casts, then the pair
-    kernel) and K6's route (the lo/hi streams, then K6's stream
-    entry); and K3 through its first C interface (no lanes a segment)."""
+    builds them (`--baseline DIR`): K1's stream entry, K1's stochastic
+    form and K6's stream entry, launched with the arguments of this
+    checkout's wrappers, whose C interfaces they share, and the other
+    checkout's interfaces built on them: K8's (PyTorch entries and bf16
+    casts, then the pair kernel) and K6's route (the lo/hi streams, then
+    K6's stream entry); and K3, with this checkout's lanes a segment."""
 
     def __init__(self, root):
-        import ctypes
-        from types import SimpleNamespace
-
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
         from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
         csrc = Path(root) / "quadraturefields_tpu_torch" / "csrc"
@@ -493,25 +495,34 @@ class Baseline:
                                     hs.TABLE_GRAD_PAIRS_KERNEL, tag)
         self.pair = BaselineKernel(csrc, "cell_table_grad",
                                    hs.CELL_PAIR_GRAD_KERNEL, tag)
-        first_segment_sum = SimpleNamespace(
-            symbol="qf_segment_sum",
-            argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
-        self.segsum = BaselineKernel(csrc, "segment_sum", first_segment_sum,
-                                     tag)
-        self.kernels = (self.pairs, self.pair, self.segsum)
+        self.segsum = BaselineKernel(csrc, "segment_sum",
+                                     hs.SEGMENT_SUM_KERNEL, tag)
+        self.stochastic = BaselineKernel(
+            csrc, "hashgrid_encode", hg.ENCODE_BWD_STOCHASTIC_KERNEL, tag)
+        self.kernels = (self.pairs, self.pair, self.segsum, self.stochastic)
+
+    def stochastic_fn(self, x, g, cfg):
+        """K1's stochastic form as the other checkout builds it, through
+        this checkout's wrapper."""
+        from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+        with launches_to(hg.ENCODE_BWD_STOCHASTIC_KERNEL, self.stochastic):
+            return hg.table_grad_stochastic_kernel(x, g, cfg)
 
     def segment_sum_fn(self, keys, vals, n_seg):
-        """K3 as the other checkout builds it, through its first C
-        interface (keys, vals, out, m, n_seg, rw)."""
+        """K3 as the other checkout builds it, launched as this
+        checkout's wrapper launches it (the lanes a segment of
+        segment_group)."""
         import torch
 
         from quadraturefields_tpu_torch._cuda import ptr
+        from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
+        m = keys.shape[0]
         out = torch.empty((n_seg, vals.shape[1]), dtype=torch.float32,
                           device=vals.device)
-        self.segsum.launch(vals.device, ptr(keys), ptr(vals), ptr(out),
-                           keys.shape[0], n_seg, vals.shape[1])
+        self.segsum.launch(vals.device, ptr(keys), ptr(vals), ptr(out), m,
+                           n_seg, vals.shape[1], hs.segment_group(m, n_seg))
         return out
 
     def pairs_fn(self, idx, v0, v1, n_entries):
@@ -554,6 +565,17 @@ class Baseline:
         """The other checkout's backward route of K6: the lo/hi streams
         built from x, then its stream entry."""
         return pair_route(x, g, cfg, self.pair_stream_fn)
+
+
+@contextmanager
+def launches_to(kernel, other):
+    """Inside the block, `kernel`'s wrapper launches `other` (a
+    BaselineKernel with the same C interface) in its place."""
+    kernel.launch = other.launch
+    try:
+        yield
+    finally:
+        del kernel.launch
 
 
 @contextmanager
@@ -861,38 +883,91 @@ def compare_kernels(torch, dev, report, card, baseline=None):
     report["table_grad_values"] = dict(pairs.pop("values"), stream=pairs)
     del idx, v0, v1
 
-    # K1's stochastic form on the same 2^18 points, tet and cube
-    for interp in ("tet", "cube"):
-        cfg = dataclasses.replace(grid(interp), grad_mode="stochastic")
-        cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
-        entry = stochastic_case(
-            torch, f"table grad (stochastic) {interp} on {n} uniform points",
-            x, cot, cfg, card, picks_exact=interp == "tet")
-        if interp == "tet":
-            report["hashgrid_encode_bwd_stochastic"] = entry
-        else:
-            report["hashgrid_encode_bwd_stochastic"]["cube"] = entry
-    del x, cot
+    # K1's stochastic form on the same 2^18 points, tet and cube; then on
+    # 2^18 ray-ordered slots, the last eighth padding (zero cotangents at
+    # one position), as a training step's sample budget holds them
+    ray_x = ray_ordered_points(torch, g, n, n // 8)
+    for inputs, xs in (("uniform", x), ("ray_ordered", ray_x)):
+        for interp in ("tet", "cube"):
+            cfg = dataclasses.replace(grid(interp), grad_mode="stochastic")
+            cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+            if inputs == "ray_ordered":
+                cot[n - n // 8:] = 0.0
+            entry = stochastic_case(
+                torch, f"table grad (stochastic) {interp} on {n} "
+                f"{inputs.replace('_', '-')} points", xs, cot, cfg, card,
+                baseline)
+            ks = report.setdefault("hashgrid_encode_bwd_stochastic", {})
+            if inputs == "uniform" and interp == "tet":
+                ks.update(entry)
+            elif inputs == "uniform":
+                ks["cube"] = entry
+            else:
+                ks.setdefault(inputs, {})[interp] = entry
+    del x, ray_x, cot
 
 
-def stochastic_case(torch, label, x, g, cfg, card, picks_exact=True):
+def ray_ordered_points(torch, g, n, n_pad):
+    """n sample slots in ray order: rays from uniform origins in uniform
+    directions, 128 samples each at the stage-1 march's step (sqrt(3) /
+    1024), clipped to the unit cube, then n_pad slots of padding at one
+    position, as the renderer's sample budget holds them."""
+    dev = g.device
+    per_ray = 128
+    n_rays = -(-(n - n_pad) // per_ray)
+    o = torch.rand((n_rays, 1, 3), generator=g, device=dev)
+    d = torch.randn((n_rays, 1, 3), generator=g, device=dev)
+    t = torch.arange(per_ray, device=dev, dtype=torch.float32)[None, :, None]
+    x = (o + t * (3 ** 0.5 / 1024) * d / d.norm(dim=2, keepdim=True))
+    x = x.clamp(0.0, 1.0).reshape(-1, 3)[:n - n_pad]
+    pad = torch.full((n_pad, 3), 0.5, device=dev)
+    return torch.cat([x, pad]).contiguous()
+
+
+def stochastic_ties(torch, x, cfg):
+    """[N, L] bool: (point, level) pairs whose uniform u lies within 2
+    ulp of one of its cumulative corner weights (summed in f32 in corner
+    order, as the plain version and the kernel sum them). There, the
+    cube's weights, which a compiler may round otherwise than PyTorch's
+    f32 products, can move the pick by one corner."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    n, L, C = x.shape[0], cfg.n_levels, cfg.corners
+    xc = hg._clip01(x)
+    u = hg._hash_u01(xc, L).T                                    # [N, L]
+    _, w = hg._corner_indices_weights(xc, cfg)
+    w = w.reshape(n, L, C)
+    near = torch.zeros((n, L), dtype=torch.bool, device=x.device)
+    cdf = torch.zeros_like(u)
+    for k in range(C - 1):
+        cdf = cdf + w[:, :, k]
+        ulp = torch.nextafter(cdf, torch.full_like(cdf, 2.0)) - cdf
+        near |= (u - cdf).abs() <= 2 * ulp
+    return near
+
+
+def stochastic_case(torch, label, x, g, cfg, card, baseline=None):
     """K1's stochastic form on (x, g): its picks against the plain
-    version's (equal on every (point, level) with picks_exact, the tet
-    weights and running sums being the plain version's bit for bit;
-    else all but 1e-3 of them, u within ulps of a cumulative weight),
+    version's (tet: equal on every (point, level), the weights and
+    running sums being the plain version's bit for bit; cube: equal but
+    where u lies within 2 ulp of a cumulative weight, stochastic_ties),
     its output within 1e-5 of max of the float64 plain sum of the rows
-    it picked; its time, its plain version's, one index_add_ of the
-    picked rows into a [E, F] accumulator (the library yardstick), and
-    the bound: x, g and the output once, an add per value of every
-    (point, level) with a nonzero cotangent."""
+    it picked; its time (with a baseline, the other checkout's kernel in
+    turns), the [E, F] zeroing inside its wrapper alone, its plain
+    version's, one index_add_ of the picked rows into a [E, F]
+    accumulator (the library yardstick), and the bound: x, g and the
+    output once, an add per value of every (point, level) with a nonzero
+    cotangent."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
 
     n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
     got, picks = hg.table_grad_stochastic_kernel(x, g, cfg, with_picks=True)
-    want_picks = hg.stochastic_picks_plain(x, cfg)
+    differ = picks != hg.stochastic_picks_plain(x, cfg)
     torch.cuda.synchronize()
-    differ = int((picks != want_picks).sum())
-    del want_picks
+    n_differ = int(differ.sum())
+    off_ties = int((differ & ~stochastic_ties(torch, x, cfg)).sum()) \
+        if cfg.interp == "cube" else n_differ
+    del differ
     rows = g.reshape(n * L, F)
     want = torch.zeros((cfg.total_entries, F), dtype=torch.float64,
                        device=x.device)
@@ -900,7 +975,11 @@ def stochastic_case(torch, label, x, g, cfg, card, picks_exact=True):
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
     del got, want
-    ms = cuda_ms(lambda: hg.table_grad_stochastic_kernel(x, g, cfg))
+    ms, res = timed(
+        lambda: hg.table_grad_stochastic_kernel(x, g, cfg),
+        baseline and (lambda: baseline.stochastic_fn(x, g, cfg)))
+    memset_ms = cuda_ms(lambda: torch.zeros((cfg.total_entries, F),
+                                            device=x.device))
     plain_ms = cuda_ms(lambda: hg.table_grad_stochastic_plain(x, g, cfg),
                        iters=5)
     acc = torch.zeros((cfg.total_entries, F), device=x.device)
@@ -910,18 +989,20 @@ def stochastic_case(torch, label, x, g, cfg, card, picks_exact=True):
     live = int((g.reshape(n, L, F) != 0).any(dim=2).sum())
     b = bound(n * 12 + n * L * F * 4 + cfg.total_entries * F * 4, live * F)
     print(f"{label} ({n * L} (point, level) pairs, {live} with a nonzero "
-          f"cotangent, {cfg.total_entries} rows): {differ} picks differ "
-          f"from the plain version's (limit "
-          f"{0 if picks_exact else '1e-3 of them'}); max_abs_err {err}, "
-          f"relative {rel} (limit 1e-5); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, index_add_ of the picked rows {lib_ms:.4f} "
-          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) [{card}]")
-    check(differ == 0 if picks_exact else differ <= 1e-3 * n * L,
-          f"{label}: {differ} picks differ from the plain version's")
+          f"cotangent, {cfg.total_entries} rows): {n_differ} picks differ "
+          f"from the plain version's, {off_ties} of them off a 2-ulp tie "
+          f"(must be 0); max_abs_err {err}, relative {rel} (limit 1e-5); "
+          f"kernel {ms:.4f} ms (its [E, F] zeroing alone {memset_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, index_add_ of the picked rows "
+          f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']});"
+          f" baseline {res} [{card}]")
+    check(off_ties == 0,
+          f"{label}: {off_ties} picks differ from the plain version's")
     check(rel <= 1e-5, f"{label} disagrees: {rel}")
-    return dict(points=n, live_pairs=live, picks_differ=differ,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, **b)
+    return dict(points=n, live_pairs=live, picks_differ=n_differ,
+                picks_differ_off_ties=off_ties, max_abs_err=err, ms=ms,
+                memset_ms=memset_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **b, **res)
 
 
 def pairs_and_values(torch, label, idx, v0, v1, e, baseline=None):
@@ -3464,7 +3545,7 @@ def paired_run(views, mode: str, stream: int = 0) -> float:
 
 
 def stochastic_slice(torch, kernels, card, views, captured, report,
-                     profile: bool, exact: dict):
+                     profile: bool, exact: dict, baseline=None):
     """Phase 10 ("train_stochastic"): Stage1Trainer.train at the trainer
     defaults with grad_mode "stochastic" and save_images, 300 steps on
     the fixture views, LPIPS weights made from a seed in
@@ -3479,8 +3560,10 @@ def stochastic_slice(torch, kernels, card, views, captured, report,
     without, the card's within 1e-4 relative of the CPU's on one view;
     the step's picks equal the plain version's on every (point, level);
     a 3-step device trace (utils/profiling.device_trace) names K1's
-    stochastic kernel; the NeRF MLPs on the card. Fills
-    report["train_stochastic"]; returns the launches."""
+    stochastic kernel, whose device time a step is its in-situ time
+    (with a baseline, two more traces of 3 steps launch the other
+    checkout's kernel, in turns with this one's); the NeRF MLPs on the
+    card. Fills report["train_stochastic"]; returns the launches."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.train.stage1_ngp import (
         Stage1Config,
@@ -3616,24 +3699,44 @@ def stochastic_slice(torch, kernels, card, views, captured, report,
     del x, g, picks
 
     # a device trace of 3 steps names K1's stochastic kernel
-    trace_dir = os.path.join(root, "trace")
-    with device_trace(trace_dir) as prof:
-        for _ in range(3):
-            trainer.train_one_step()
-    trace = os.path.join(trace_dir, "trace.json")
+    def traced_steps(tag):
+        """K1's stochastic form in situ: its device time a step in a
+        device trace of 3 steps, and the trace file."""
+        trace_dir = os.path.join(root, tag)
+        with device_trace(trace_dir) as prof:
+            for _ in range(3):
+                trainer.train_one_step()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if "encode_bwd_stochastic" in e.key
+                 and e.device_type == torch.autograd.DeviceType.CUDA
+                 ) / 1e3 / 3
+        return ms, os.path.join(trace_dir, "trace.json")
+
+    in_situ, trace = traced_steps("trace")
     check(os.path.exists(trace), "device_trace wrote no trace file")
     with open(trace) as f:
         named = "encode_bwd_stochastic_kernel" in f.read()
-    # K1's stochastic form in situ: its device time a step in the trace
-    in_situ = sum(e.self_device_time_total for e in prof.key_averages()
-                  if "encode_bwd_stochastic" in e.key
-                  and e.device_type == torch.autograd.DeviceType.CUDA
-                  ) / 1e3 / 3
     print(f"device trace of 3 steps: {trace} ({os.path.getsize(trace)} "
           f"bytes), names encode_bwd_stochastic_kernel: {named}; its "
           f"device time {in_situ:.4f} ms a step [{card}]")
     check(named, "the trace does not name K1's stochastic kernel")
-    report["hashgrid_encode_bwd_stochastic"]["in_situ_ms"] = in_situ
+    ks = report["hashgrid_encode_bwd_stochastic"]
+    if baseline is not None:
+        # the other checkout's kernel in the same steps, in turns (this
+        # one's trace above, the other's twice, this one's again); its
+        # launches go through the baseline's library and count nothing
+        turns = [in_situ]
+        for tag in ("baseline_1", "baseline_2"):
+            with launches_to(hg.ENCODE_BWD_STOCHASTIC_KERNEL,
+                             baseline.stochastic):
+                turns.append(traced_steps(tag)[0])
+        turns.append(traced_steps("trace_2")[0])
+        in_situ = (turns[0] + turns[3]) / 2
+        ks["in_situ_baseline_ms"] = (turns[1] + turns[2]) / 2
+        print(f"in situ, 3 steps a turn: this kernel {turns[0]:.4f}, "
+              f"{turns[3]:.4f} ms a step; the baseline's {turns[1]:.4f}, "
+              f"{turns[2]:.4f} ms a step [{card}]")
+    ks["in_situ_ms"] = in_situ
 
     mlps = nerf_mlps_on_the_card(torch, card)
     print(f"training, steps 150-300: stochastic {out['ms_step']:.3f} ms/step,"
@@ -5366,19 +5469,25 @@ def time_captured(torch, report, captured, card, baseline=None):
             "second-order stream", hs.row_grad_kernel, hs.row_grad_plain,
             captured.pop("back_prop_cell_rows"), card)}
     # K1's stochastic form on the same corner step (phase 4's x and g),
-    # beside the exact K1 above, and on phase 10's own step
+    # beside the exact K1 above, and on phase 10's own step; tet as the
+    # paths run it and cube on the same x and g
     ks = report["hashgrid_encode_bwd_stochastic"]
-    ks["captured"] = {"train_step": stochastic_case(
-        torch, "table grad (stochastic) tet on phase 4's corner step's x "
-        "and g", x, g, dataclasses.replace(path_cfg, interp="tet",
-                                           grad_mode="stochastic"), card)}
+    steps = {"train_step": ("phase 4's corner step",
+                            *captured["corner_grad_step"]),
+             "train_stochastic_step": ("one phase-10 step",
+                                       *captured["stochastic_grad_step"])}
+    for interp, entry in (("tet", ks), ("cube", ks["cube"])):
+        entry["captured"] = {
+            key: stochastic_case(
+                torch, f"table grad (stochastic) {interp} on {label}'s x "
+                "and g", sx, sg, dataclasses.replace(
+                    scfg, interp=interp, grad_mode="stochastic"), card,
+                baseline)
+            for key, (label, sx, sg, scfg) in steps.items()}
+    del steps
     print(f"K1 on phase 4's corner step: stochastic "
           f"{ks['captured']['train_step']['ms']:.4f} ms, exact "
           f"{k1['captured']['train_step']['ms']:.4f} ms [{card}]")
-    x, g, cfg = captured["stochastic_grad_step"]
-    ks["captured"]["train_stochastic_step"] = stochastic_case(
-        torch, "table grad (stochastic) tet on one phase-10 step's x and g",
-        x, g, cfg, card)
     # K1 on the stage-2 step's x and g into the 317 MB field table; its
     # wrapper zeroes the gradient before the launch, timed alone too
     x, g, cfg = captured["field_grad_step"]
@@ -5725,7 +5834,8 @@ def main() -> int:
     # phase 10: the trainer defaults with grad_mode "stochastic",
     # save_images and LPIPS
     stochastic_launches = stochastic_slice(
-        torch, counted, card, views, captured, report, profile, phase4)
+        torch, counted, card, views, captured, report, profile, phase4,
+        baseline)
 
     # phase 14: data parallelism, stages 1 and 2 over two gloo ranks on
     # the card, then one NCCL rank

@@ -87,13 +87,34 @@
 // to its interpolation weight, from a uniform hashed from the clipped
 // position's bits and the level (JAX's _hash_u01), and adds its
 // unweighted cotangent g to that row alone: an unbiased estimate of the
-// exact sum. One thread per (point, level), point-major, so a warp reads
-// its cotangent values as consecutive rows of g. The corners come from
-// the same level_corners as the forward and the exact backward, the
-// cumulative weights are summed in corner order with round-to-nearest
-// adds, so the picks equal the plain version's wherever its weights
-// equal these (tet: always). What bounds it: reading x and g and writing
-// the [E, F] gradient, as the exact K1, with 1/C of its atomics.
+// exact sum. The weights come from the same cell_corners as the forward
+// and the exact backward and are summed in corner order with
+// round-to-nearest adds, so the picks equal the plain version's wherever
+// its weights equal these (tet: always); only the picked corner's row is
+// hashed. Its bound on an H100: reading x and g and writing the [E, F]
+// gradient (87 MB at 2^18 points, L16 F2 T2^19: ~26 us, the wrapper's
+// zeroing of the gradient included). What holds it back is the atomics'
+// rate in L2: one a live (point, level), a quarter of the exact K1's,
+// most of them into rows at random on the fine hashed levels, where no
+// two samples share a cell; and the wrapper's zeroing (PERF.md). The
+// design is the exact K1's:
+// - A block per 32 consecutive points, its warps taking the levels in
+//   turn, so a warp's lanes hold 32 neighbouring points at one level
+//   (one level's constants, one branch of the dense/hashed index). x and
+//   g are staged in shared memory by coalesced evict-first loads (__ldcs:
+//   read once).
+// - Along rays, neighbouring samples share a cell on every level coarser
+//   than the sample spacing, and after the pick often a row. One shuffle
+//   and one vote find whether some lane picked its neighbour's row; if
+//   so, __match_any_sync groups the lanes of equal rows and one lane adds
+//   the group's sum. Lanes whose cotangent values are all zero (the
+//   sample budget's padding) add nothing.
+// - Plain atomics: K8's L2 evict-last policy on them measured slower
+//   here, on uniform and on ray-ordered points alike (PERF.md). Passes
+//   over groups of levels, so that a pass's atomics meet fewer rows in
+//   L2, measured faster on uniform points and slower on ray-ordered
+//   ones, whose coarse levels then take every block's atomics at once.
+
 #include "grid_levels.cuh"
 
 namespace {
@@ -126,31 +147,31 @@ __device__ __forceinline__ void accumulate_row(const float* __restrict__ table,
   }
 }
 
-// The corner rows and interpolation weights of point p at level l, in
-// the corner order of ops/hashgrid.py:_CORNERS (cube) or the Kuhn
-// simplex order (tet). The forward and the backward both call this, so
-// the backward scatters into exactly the (row, w) the forward gathered.
+// The C corners of a point's cell at one level, in the corner order of
+// ops/hashgrid.py:_CORNERS (cube) or the Kuhn simplex order (tet): each
+// corner's interpolation weight and its offset (0 or 1 an axis) from
+// the cell's base. The forward, the exact backward and the stochastic
+// pick all take their weights and corners from here, so the backward
+// scatters into exactly the (row, w) the forward gathered.
 template <bool kTet>
-struct Corners {
+struct CellCorners {
   static constexpr int kCount = kTet ? 4 : 8;
-  long long row[kCount];
+  int base[3];
   float w[kCount];
+  int off[kCount][3];
 };
 
 template <bool kTet>
-__device__ __forceinline__ Corners<kTet> level_corners(
-    const float* __restrict__ x, long long p, float scale, int res,
-    int hashed, unsigned int mask) {
-  Corners<kTet> c;
+__device__ __forceinline__ CellCorners<kTet> cell_corners(
+    const float (&xa)[3], float scale) {
+  CellCorners<kTet> c;
   float frac[3];
-  int base[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const float xa = fminf(fmaxf(__ldg(x + 3 * p + a), 0.0f), 1.0f);
-    const float pos = __fadd_rn(__fmul_rn(xa, scale), 0.5f);
+    const float pos = __fadd_rn(__fmul_rn(xa[a], scale), 0.5f);
     const float fl = floorf(pos);
     frac[a] = __fsub_rn(pos, fl);
-    base[a] = static_cast<int>(fl);
+    c.base[a] = static_cast<int>(fl);
   }
   if constexpr (!kTet) {
     // corner k sits at offset (k>>2 & 1, k>>1 & 1, k & 1); weight
@@ -162,8 +183,9 @@ __device__ __forceinline__ Corners<kTet> level_corners(
       const float w1 = o1 ? frac[1] : __fsub_rn(1.0f, frac[1]);
       const float w2 = o2 ? frac[2] : __fsub_rn(1.0f, frac[2]);
       c.w[k] = __fmul_rn(__fmul_rn(w0, w1), w2);
-      c.row[k] = corner_index(base[0] + o0, base[1] + o1, base[2] + o2,
-                              res, hashed, mask);
+      c.off[k][0] = o0;
+      c.off[k][1] = o1;
+      c.off[k][2] = o2;
     }
   } else {
     // Kuhn simplex: rank the fracs descending with the JAX tie-break
@@ -175,26 +197,56 @@ __device__ __forceinline__ Corners<kTet> level_corners(
         (fx >= fz) + (fy >= fz),
     };
     float f1 = 0.0f, f2 = 0.0f, f3 = 0.0f;
-    int e1[3], e12[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       if (r[a] == 0) f1 = frac[a];
       if (r[a] == 1) f2 = frac[a];
       if (r[a] == 2) f3 = frac[a];
-      e1[a] = r[a] == 0;
-      e12[a] = r[a] <= 1;
+      c.off[0][a] = 0;
+      c.off[1][a] = r[a] == 0;
+      c.off[2][a] = r[a] <= 1;
+      c.off[3][a] = 1;
     }
     c.w[0] = __fsub_rn(1.0f, f1);
     c.w[1] = __fsub_rn(f1, f2);
     c.w[2] = __fsub_rn(f2, f3);
     c.w[3] = f3;
-    c.row[0] = corner_index(base[0], base[1], base[2], res, hashed, mask);
-    c.row[1] = corner_index(base[0] + e1[0], base[1] + e1[1],
-                            base[2] + e1[2], res, hashed, mask);
-    c.row[2] = corner_index(base[0] + e12[0], base[1] + e12[1],
-                            base[2] + e12[2], res, hashed, mask);
-    c.row[3] = corner_index(base[0] + 1, base[1] + 1, base[2] + 1, res,
-                            hashed, mask);
+  }
+  return c;
+}
+
+// The row within its level of the corner at offset o of the cell.
+template <bool kTet>
+__device__ __forceinline__ long long cell_corner_row(
+    const CellCorners<kTet>& c, const int (&o)[3], int res, int hashed,
+    unsigned int mask) {
+  return corner_index(c.base[0] + o[0], c.base[1] + o[1], c.base[2] + o[2],
+                      res, hashed, mask);
+}
+
+// The corner rows and interpolation weights of point p at level l.
+template <bool kTet>
+struct Corners {
+  static constexpr int kCount = kTet ? 4 : 8;
+  long long row[kCount];
+  float w[kCount];
+};
+
+template <bool kTet>
+__device__ __forceinline__ Corners<kTet> level_corners(
+    const float* __restrict__ x, long long p, float scale, int res,
+    int hashed, unsigned int mask) {
+  float xa[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    xa[a] = fminf(fmaxf(__ldg(x + 3 * p + a), 0.0f), 1.0f);
+  }
+  const CellCorners<kTet> cc = cell_corners<kTet>(xa, scale);
+  Corners<kTet> c;
+#pragma unroll
+  for (int k = 0; k < Corners<kTet>::kCount; ++k) {
+    c.w[k] = cc.w[k];
+    c.row[k] = cell_corner_row<kTet>(cc, cc.off[k], res, hashed, mask);
   }
   return c;
 }
@@ -494,19 +546,15 @@ encode_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// JAX's _hash_u01 (ops/hashgrid.py:685-701) of point p at level l: the
-// bits of the clipped coordinates times odd multipliers, xor'ed, the
-// level's multiple xor'ed in, two xorshift-multiply rounds, the top 24
-// bits as a float in [0, 1). "+ 0" turns a clipped -0.0 into +0.0, as
+// JAX's _hash_u01 (ops/hashgrid.py:685-701) of a point's clipped
+// coordinates xa at level l: their bits times odd multipliers, xor'ed,
+// the level's multiple xor'ed in, two xorshift-multiply rounds, the top
+// 24 bits as a float in [0, 1). "+ 0" turns a clipped -0.0 into +0.0, as
 // XLA's clip does.
-__device__ __forceinline__ float hash_u01(const float* __restrict__ x,
-                                          long long p, int l) {
+__device__ __forceinline__ float hash_u01(const float (&xa)[3], int l) {
   unsigned int b[3];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float xa = fminf(fmaxf(__ldg(x + 3 * p + a), 0.0f), 1.0f);
-    b[a] = __float_as_uint(__fadd_rn(xa, 0.0f));
-  }
+  for (int a = 0; a < 3; ++a) b[a] = __float_as_uint(__fadd_rn(xa[a], 0.0f));
   unsigned int h = (b[0] * 0x9E3779B1u) ^ (b[1] * 0x85EBCA77u) ^
                    (b[2] * 0xC2B2AE3Du);
   h ^= static_cast<unsigned int>(l) * 0x27D4EB2Fu;
@@ -516,11 +564,65 @@ __device__ __forceinline__ float hash_u01(const float* __restrict__ x,
   return __fmul_rn(static_cast<float>(h >> 8), 5.9604644775390625e-08f);
 }
 
-// Stochastic table gradient: thread i = p * L + l picks corner
-// c = #{k < C-1 : u >= w_0 + ... + w_k} of (p, l) and adds g[p, l] to
-// its row (skipped when the F values are all zero). With `picks`
-// non-null it also stores the picked row (global table row) at
-// picks[p * L + l].
+// The row within level l that the stochastic gradient picks for a point
+// with clipped coordinates xa: corner c = #{k < C-1 : u >= w_0 + ... +
+// w_k} of the point's cell, u = hash_u01(xa, l), the weights summed in
+// corner order with round-to-nearest adds. Only the picked corner's row
+// is computed.
+template <bool kTet>
+__device__ __forceinline__ long long level_pick(const float (&xa)[3], int l,
+                                                const Levels& lv) {
+  constexpr int C = CellCorners<kTet>::kCount;
+  const CellCorners<kTet> cc = cell_corners<kTet>(xa, lv.scale[l]);
+  const float u = hash_u01(xa, l);
+  float cdf = 0.0f;
+  int sel = 0;
+#pragma unroll
+  for (int k = 0; k < C - 1; ++k) {
+    cdf = __fadd_rn(cdf, cc.w[k]);
+    sel += u >= cdf;
+  }
+  int o[3] = {cc.off[0][0], cc.off[0][1], cc.off[0][2]};
+#pragma unroll
+  for (int k = 1; k < C; ++k) {
+    if (sel == k) {
+      o[0] = cc.off[k][0];
+      o[1] = cc.off[k][1];
+      o[2] = cc.off[k][2];
+    }
+  }
+  return cell_corner_row<kTet>(cc, o, lv.res[l], lv.hashed[l], lv.mask[l]);
+}
+
+// dst[0:V] = src[0:V], loaded evict-first (read once)
+template <int V>
+__device__ __forceinline__ void copy_streaming(float* dst, const float* src) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) =
+        __ldcs(reinterpret_cast<const float4*>(src));
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) =
+        __ldcs(reinterpret_cast<const float2*>(src));
+  } else {
+    *dst = __ldcs(src);
+  }
+}
+
+// Stochastic table gradient: each (point, level) adds its unweighted
+// cotangent g[p, l] to the one row level_pick picks (skipped when its F
+// values are all zero). A block takes a group of 32 consecutive points:
+// it copies their coordinates and cotangent rows [32, L*F] (contiguous
+// in x and g) into shared memory with coalesced evict-first loads, and
+// its warps take the levels in turn, so the 32 lanes of a warp hold the
+// group at one level. Where some lane picked its neighbour's row,
+// __match_any_sync groups the lanes of equal picked rows: a lane alone
+// adds its own row; a group's first lane (its first two at F = 8, one
+// float4 chunk each) sums the group's g in lane order from shared memory
+// and adds the sum with one atomic. Elsewhere every lane adds its row,
+// back to back. Zero-cotangent lanes take a sentinel row (rows within a
+// level are < 2^32 - 1), so they never group with live ones. With
+// `picks` non-null the picked row (global table row) of (p, l) is also
+// stored at picks[p * L + l].
 template <int F, bool kTet>
 __global__ void __launch_bounds__(kThreads)
 encode_bwd_stochastic_kernel(const float* __restrict__ x,
@@ -528,51 +630,87 @@ encode_bwd_stochastic_kernel(const float* __restrict__ x,
                              float* __restrict__ d_table,
                              long long* __restrict__ picks, long long n,
                              int n_levels, Levels lv) {
-  constexpr int C = Corners<kTet>::kCount;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n * n_levels) return;
-  const long long p = i / n_levels;
-  const int l = static_cast<int>(i - p * n_levels);
-  const Corners<kTet> c = level_corners<kTet>(
-      x, p, lv.scale[l], lv.res[l], lv.hashed[l], lv.mask[l]);
-  const float u = hash_u01(x, p, l);
-  float cdf = 0.0f;
-  int sel = 0;
-#pragma unroll
-  for (int k = 0; k < C - 1; ++k) {
-    cdf = __fadd_rn(cdf, c.w[k]);
-    sel += u >= cdf;
+  constexpr int kChunks = F < 4 ? 1 : F / 4;  // atomics a row
+  constexpr int V = F < 4 ? F : 4;
+  constexpr unsigned int kAll = 0xffffffffu;
+  __shared__ float x_tile[32 * 3];
+  extern __shared__ float4 g_smem[];
+  float* g_tile = reinterpret_cast<float*>(g_smem);
+  const int stride = tile_stride(n_levels, F);
+  const int lane = threadIdx.x & 31;
+  const long long p0 = static_cast<long long>(blockIdx.x) * 32;
+  const int n_tile = static_cast<int>(min(32LL, n - p0));
+
+  for (int i = threadIdx.x; i < n_tile * 3; i += blockDim.x) {
+    x_tile[i] = __ldcs(x + p0 * 3 + i);
   }
-  long long row = c.row[0];
-#pragma unroll
-  for (int k = 1; k < C; ++k) {
-    if (sel == k) row = c.row[k];
+  const int vecs = n_levels * F / V;
+  const float* src = g + p0 * n_levels * F;
+  for (int i = threadIdx.x; i < n_tile * vecs; i += blockDim.x) {
+    const int pt = i / vecs;
+    copy_streaming<V>(g_tile + pt * stride + (i - pt * vecs) * V,
+                      src + static_cast<long long>(i) * V);
   }
-  if (picks != nullptr) picks[i] = lv.offset[l] + row;
-  float gv[F];
-  bool live = false;
-  const float* gs = g + i * F;
-  if constexpr (F == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(gs);
-    gv[0] = v.x;
-    gv[1] = v.y;
-  } else if constexpr (F % 4 == 0) {
+  __syncthreads();
+
+  float xa[3] = {0.0f, 0.0f, 0.0f};
+  if (lane < n_tile) {
 #pragma unroll
-    for (int q = 0; q < F / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(gs)[q];
-      gv[4 * q] = v.x;
-      gv[4 * q + 1] = v.y;
-      gv[4 * q + 2] = v.z;
-      gv[4 * q + 3] = v.w;
+    for (int a = 0; a < 3; ++a) {
+      xa[a] = fminf(fmaxf(x_tile[3 * lane + a], 0.0f), 1.0f);
     }
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) gv[f] = gs[f];
   }
+  for (int l = threadIdx.x >> 5; l < n_levels; l += blockDim.x >> 5) {
+    const float* gs = g_tile + lane * stride + l * F;
+    float gv[F] = {};
+    bool live = false;
+    long long row = 0;
+    if (lane < n_tile) {
+      row = level_pick<kTet>(xa, l, lv);
+      if (picks != nullptr) {
+        picks[(p0 + lane) * n_levels + l] = lv.offset[l] + row;
+      }
 #pragma unroll
-  for (int f = 0; f < F; ++f) live |= gv[f] != 0.0f;
-  if (live) add_row<F>(d_table + lv.offset[l] * F, row, gv);
+      for (int f = 0; f < F; ++f) {
+        gv[f] = gs[f];
+        live |= gv[f] != 0.0f;
+      }
+    }
+    const unsigned int live_lanes = __ballot_sync(kAll, live);
+    if (live_lanes == 0) continue;  // the whole warp
+    float* dtab = d_table + lv.offset[l] * F;
+    const unsigned int key = live ? static_cast<unsigned int>(row) : kAll;
+    // Every lane runs the shuffle and the votes: they must not sit behind
+    // a && that short-circuits.
+    const unsigned int prev = __shfl_up_sync(kAll, key, 1);
+    const bool merge =
+        __ballot_sync(kAll, live && lane > 0 && prev == key) != 0;
+    const unsigned int group =
+        merge ? __match_any_sync(kAll, key) & live_lanes : 1u << lane;
+    if (!live) continue;
+    if (group == (1u << lane)) {  // alone: the row from registers
+      add_row<F>(dtab, row, gv);
+      continue;
+    }
+    const int rank = __popc(group & ((1u << lane) - 1u));
+    if (rank >= kChunks) continue;
+    // chunk `rank` of the row: floats V rank .. V rank + V, summed over
+    // the group in lane order
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+    for (unsigned int rest = group; rest; rest &= rest - 1u) {
+      const float* gj = g_tile + (__ffs(rest) - 1) * stride + l * F + rank * V;
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], gj[i]);
+    }
+    if constexpr (F <= 4) {
+      add_row<F>(dtab, row, acc);
+    } else {
+      atomicAdd(reinterpret_cast<float4*>(dtab + row * F) + rank,
+                make_float4(acc[0], acc[1], acc[2], acc[3]));
+    }
+  }
 }
 
 // Shared-memory budget of one tile's output, in floats (8.5 KB: 64
@@ -625,13 +763,19 @@ cudaError_t launch_bwd_stochastic(bool tet, const float* x, const float* g,
                                   float* d_table, long long* picks,
                                   long long n, int n_levels,
                                   const Levels& lv, cudaStream_t stream) {
-  const unsigned int blocks = qf_blocks(n * n_levels, kThreads);
+  // as launch_bwd: a block per 32 points, a warp per level up to 8, the
+  // group's padded cotangent rows in dynamic shared memory
+  const unsigned int blocks = qf_blocks(n, 32);
+  const int threads = 32 * min(kThreads / 32, n_levels);
+  const size_t smem =
+      static_cast<size_t>(32) * tile_stride(n_levels, F) * sizeof(float);
   if (tet) {
-    encode_bwd_stochastic_kernel<F, true><<<blocks, kThreads, 0, stream>>>(
+    encode_bwd_stochastic_kernel<F, true><<<blocks, threads, smem, stream>>>(
         x, g, d_table, picks, n, n_levels, lv);
   } else {
-    encode_bwd_stochastic_kernel<F, false><<<blocks, kThreads, 0, stream>>>(
-        x, g, d_table, picks, n, n_levels, lv);
+    encode_bwd_stochastic_kernel<F, false>
+        <<<blocks, threads, smem, stream>>>(x, g, d_table, picks, n,
+                                            n_levels, lv);
   }
   return cudaGetLastError();
 }
@@ -696,7 +840,8 @@ QF_EXPORT int qf_hashgrid_encode_bwd(const float* x, const float* g,
 // The stochastic table gradient (grad_mode "stochastic"): x [n, 3] f32,
 // g [n, L*F] f32 (4 * min(F, 4)-byte aligned), d_table [E, F] f32 zeroed
 // by the caller and added into, picks [n, L] int64 or null, all device
-// memory; the per-level arrays (length L) are host memory.
+// memory; the per-level arrays (length L) are host memory, each level
+// smaller than 2^32 rows (the lanes match picked rows in 32 bits).
 QF_EXPORT int qf_hashgrid_encode_bwd_stochastic(
     const float* x, const float* g, float* d_table, long long* picks,
     long long n, int n_levels, int n_features, int tet, const float* scales,
@@ -705,6 +850,9 @@ QF_EXPORT int qf_hashgrid_encode_bwd_stochastic(
   Levels lv;
   if (n <= 0 || !make_levels(n_levels, scales, res, sizes, offsets, &lv)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int l = 0; l < n_levels; ++l) {
+    if (sizes[l] > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -937,15 +937,24 @@ def _dl_dw(table, idx, g, cfg: HashGridConfig) -> torch.Tensor:
         .reshape(n, -1)
 
 
+def _clip01_differentiable(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] as jnp.clip computes it, min(max(x, 0), 1),
+    so that its derivative is JAX's in either mode: 1/2 where x lies on
+    a bound (max and min split a tie; torch.clamp gives 1 there), 0
+    outside."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def _position_grad(table, x, g, cfg: HashGridConfig):
     """dL/dx through the interpolation weights (ops/hashgrid.py:830-842,
     the cell layout's :613-633): dL/dw (_dl_dw) pulled back through the
     weights' dependence on x by autograd, as JAX does with jax.vjp. x is
-    the clamped input, and the weights clamp it again. Payload-
-    independent."""
+    the clamped input, and the weights clip it again, as JAX's do: a
+    coordinate on a face (or clamped onto it) takes half the gradient.
+    Payload-independent."""
     with torch.enable_grad():
         xx = x.detach().requires_grad_(True)
-        idx, w = _indices_weights(xx.clamp(0.0, 1.0), cfg)
+        idx, w = _indices_weights(_clip01_differentiable(xx), cfg)
         (d_x,) = torch.autograd.grad(w, xx, _dl_dw(table.detach(), idx, g,
                                                    cfg))
     return d_x
@@ -957,7 +966,7 @@ def _weights_jvp(x: torch.Tensor, u: torch.Tensor, cfg: HashGridConfig):
     [N, 3] in the same layout, by forward-mode autograd through the
     weights; differentiable in x and u by reverse mode."""
     def weights(xx):
-        idx, w = _indices_weights(xx.clamp(0.0, 1.0), cfg)
+        idx, w = _indices_weights(_clip01_differentiable(xx), cfg)
         return w, idx
 
     _, s, idx = torch.func.jvp(weights, (x,), (u.to(torch.float32),),
@@ -1030,7 +1039,7 @@ class _HashGridEncodeGrad(torch.autograd.Function):
                 idx, s = _weights_jvp(x, u_x, cfg)
                 psi.append((s * _dl_dw(table, idx, g, cfg)).sum())
             if u_table is not None:
-                idx, w = _indices_weights(x.clamp(0.0, 1.0), cfg)
+                idx, w = _indices_weights(_clip01_differentiable(x), cfg)
                 psi.append((w * _dl_dw(u_table, idx, g, cfg)).sum())
             psi = sum(psi)
             inputs = [t for t, need in zip((table, x, g), want) if need]

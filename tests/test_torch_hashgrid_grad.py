@@ -58,6 +58,41 @@ def test_encode_vjp_matches_jax(interp, n_features):
     np.testing.assert_allclose(dx_t.numpy(), dx_j, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("layout,interp", [("corner", "tet"),
+                                           ("corner", "cube"),
+                                           ("cell", "tet")])
+def test_position_grad_on_and_outside_the_faces_matches_jax(layout, interp):
+    """d_x within 1e-4 of jax.vjp where the encode clips x: coordinates
+    outside [0, 1] and on its faces. JAX's weights clip the clipped x
+    again with jnp.clip, min(max(x, 0), 1), whose derivative on a bound
+    is 1/2 (max and min split a tie), so such a coordinate takes half
+    the gradient it would take inside; d_table within 1e-5 of max."""
+    kw = _grid_kw(interp, 2, "exact")
+    if layout == "cell":
+        kw = dict(kw, layout="cell", grad_mode="auto")
+    jcfg, tcfg = jhg.HashGridConfig(**kw), thg.HashGridConfig(**kw)
+    rng = np.random.default_rng(5)
+    n = 600
+    x = rng.uniform(-0.2, 1.2, (n, 3)).astype(np.float32)
+    x[:200, rng.integers(0, 3, 200)] = rng.choice([0.0, 1.0], 200)
+    assert ((x <= 0) | (x >= 1)).any(axis=1).mean() > 0.5
+    width = 2 * (8 if layout == "cell" else 1)
+    table = rng.uniform(-1, 1, (jcfg.total_entries, width)) \
+        .astype(np.float32)
+    g = rng.normal(size=(n, jcfg.output_dim)).astype(np.float32)
+    _, pull = jax.vjp(lambda t, xx: jhg.hashgrid_encode(t, xx, jcfg),
+                      jnp.asarray(table), jnp.asarray(x))
+    dt_j, dx_j = (np.asarray(a) for a in pull(jnp.asarray(g)))
+    tt = torch.tensor(table, requires_grad=True)
+    tx = torch.tensor(x, requires_grad=True)
+    dt_t, dx_t = torch.autograd.grad(thg.hashgrid_encode(tt, tx, tcfg),
+                                     (tt, tx), torch.tensor(g))
+    assert np.abs(dt_t.numpy() - dt_j).max() <= 1e-5 * np.abs(dt_j).max()
+    np.testing.assert_allclose(dx_t.numpy(), dx_j, rtol=0, atol=1e-4)
+    on_face = (x == 0) | (x == 1)
+    assert np.abs(dx_j[on_face]).max() > 0
+
+
 @pytest.mark.parametrize("mode", ["exact", "sorted"])
 def test_grad_modes_share_one_function(mode):
     """"exact" and "sorted" give the "auto" gradient bit for bit."""
@@ -112,23 +147,37 @@ def _jax_picks(x, cfg):
     return rows, u, cdf
 
 
-@pytest.mark.parametrize("interp", ["tet", "cube"])
-@pytest.mark.parametrize("n_features", [2, 4])
-def test_stochastic_grad_matches_jax(interp, n_features):
+@pytest.mark.parametrize("inputs,n_features,interp", [
+    pytest.param(inputs, f, interp, id=(f"{f}-{interp}" if inputs == "uniform"
+                                        else f"{inputs}-{f}-{interp}"))
+    for inputs in ("uniform", "ray_ordered") for f in (2, 4)
+    for interp in ("tet", "cube")])
+def test_stochastic_grad_matches_jax(inputs, n_features, interp):
     """grad_mode "stochastic": the picks equal JAX's on every (point,
     level) but those where u lies within 2 ulp of a cumulative weight
     (f32 sums of JAX's cumsum and of the port's running sum may differ
     there); such ties are counted and must be rare. The table gradient
     within 1e-5 of max |d_table| of jax.vjp of the stochastic encode,
-    d_x within 1e-4 (the exact pullback, as in JAX)."""
+    d_x within 1e-4 (the exact pullback, as in JAX). On uniform points,
+    and on the inputs the card kernel merges and skips: ray-ordered
+    samples whose neighbours share cells on every level, then a tail of
+    zero-cotangent padding at one position (a sample budget's)."""
     jcfg = jhg.HashGridConfig(**_grid_kw(interp, n_features, "stochastic"))
     tcfg = thg.HashGridConfig(**_grid_kw(interp, n_features, "stochastic"))
     rng = np.random.default_rng(20 + n_features)
     n = 3000
-    x = rng.uniform(0.02, 0.98, (n, 3)).astype(np.float32)
+    if inputs == "uniform":
+        x = rng.uniform(0.02, 0.98, (n, 3)).astype(np.float32)
+    else:
+        x = _ray_samples(rng, n, 400)
     table = rng.uniform(-1, 1, (jcfg.total_entries, n_features)) \
         .astype(np.float32)
     g = rng.normal(size=(n, jcfg.output_dim)).astype(np.float32)
+    if inputs == "ray_ordered":
+        g[n - 400:] = 0.0
+        # neighbours pick equal rows on the coarse levels
+        rows = thg.stochastic_picks_plain(torch.tensor(x), tcfg).numpy()
+        assert (rows[1:n - 400, 0] == rows[:n - 401, 0]).mean() > 0.25
 
     want, u, cdf = _jax_picks(x, jcfg)
     got = thg.stochastic_picks_plain(torch.tensor(x), tcfg).numpy()

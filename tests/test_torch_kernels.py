@@ -25,7 +25,7 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import knots_faces_ties
+from chip_smoke import knots_faces_ties, stochastic_ties
 from quadraturefields_tpu_torch.ops import hashgrid as hg
 from quadraturefields_tpu_torch.ops import hashgrid_backward as hb
 from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
@@ -295,30 +295,56 @@ def test_table_grad_kernel_matches_plain(dev, interp, n_features):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("interp", ["cube", "tet"])
-@pytest.mark.parametrize("n_features", [1, 2, 4, 8])
-def test_table_grad_stochastic_kernel_matches_plain(dev, interp,
-                                                    n_features):
+def _stochastic_inputs(inputs, n, cfg, dev, seed):
+    """(x, cotangent) of the stochastic kernel's card test. "uniform":
+    random points in and outside the cube, the cube's corners and faces
+    and -0.0 coordinates; "ray_ordered": ray-ordered samples, a run of
+    64 points inside one cell of the dense level 0 (its picks spread
+    over the cell's corners, which neighbouring lanes share) and one of
+    64 copies of a point. Both end in 500 zero-cotangent padding
+    slots."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if inputs == "uniform":
+        x = torch.rand((n, 3), generator=g, device=dev) * 1.2 - 0.1
+        x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
+                              [-0.0, -0.0, -0.0], [-0.0, 0.5, 1.0],
+                              [1.0, -0.0, 0.25], [-2.0, 3.0, -0.0]])
+    else:
+        x = _ray_samples(g, n, 500, dev)
+        # level 0's cell 5 on each axis: pos = x * scale + 0.5 in [5, 6)
+        s0 = cfg.level_scales[0]
+        x[1000:1064] = (4.55 + 0.9 * torch.rand((64, 3), generator=g,
+                                                 device=dev)) / s0
+        x[2000:2064] = x[2000]
+    cot = torch.randn((n, cfg.output_dim), generator=g, device=dev)
+    cot[-500:] = 0.0
+    return x, cot
+
+
+@pytest.mark.parametrize("inputs,n_features,interp", [
+    pytest.param(inputs, f, interp, id=(f"{f}-{interp}" if inputs == "uniform"
+                                        else f"{inputs}-{f}-{interp}"))
+    for inputs in ("uniform", "ray_ordered") for f in (1, 2, 4, 8)
+    for interp in ("cube", "tet")])
+def test_table_grad_stochastic_kernel_matches_plain(dev, inputs, n_features,
+                                                    interp):
     """K1's stochastic form (grad_mode "stochastic") through
     hashgrid_encode's backward, on one dense and one hashed level, on
-    random points in and outside the cube, the cube's corners and faces,
-    -0.0 coordinates and zero-cotangent padding: it launches once and
-    the exact K1 never; its picks equal the plain version's (tet: the
-    same weights and running sums bit for bit; cube: but where u lies
-    within 2 ulp of a cumulative weight); its gradient within 1e-5 of
-    max of the float64 plain sum of the rows it picked."""
+    _stochastic_inputs: uniform points, and ray-ordered ones whose lanes
+    pick equal rows and merge before their atomics; both with
+    zero-cotangent padding. It launches once and the exact K1 never; its
+    picks equal the plain version's (tet: the same weights and running
+    sums bit for bit; cube: but where u lies within 2 ulp of a
+    cumulative weight, chip_smoke.stochastic_ties); its gradient within
+    1e-5 of max of the float64 plain sum of the rows it picked."""
     cfg = hg.HashGridConfig.from_max_resolution(
         512, n_levels=2, n_features=n_features, log2_hashmap_size=14,
         interp=interp, grad_mode="stochastic")
-    g = torch.Generator(device=dev).manual_seed(3)
-    table = (torch.rand((cfg.total_entries, n_features), generator=g,
-                        device=dev) * 2 - 1).requires_grad_(True)
-    x = torch.rand((20000, 3), generator=g, device=dev) * 1.2 - 0.1
-    x[:6] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0],
-                          [-0.0, -0.0, -0.0], [-0.0, 0.5, 1.0],
-                          [1.0, -0.0, 0.25], [-2.0, 3.0, -0.0]])
-    cot = torch.randn((20000, cfg.output_dim), generator=g, device=dev)
-    cot[-500:] = 0.0
+    res, sizes = cfg.level_resolutions, cfg.level_sizes
+    assert res[0] ** 3 <= sizes[0] and res[1] ** 3 > sizes[1]
+    x, cot = _stochastic_inputs(inputs, 20000, cfg, dev, 3)
+    table = torch.zeros((cfg.total_entries, n_features), device=dev,
+                        requires_grad=True)
     exact = hg.ENCODE_BWD_KERNEL.launches
     before = hg.ENCODE_BWD_STOCHASTIC_KERNEL.launches
     (got,) = torch.autograd.grad(hg.hashgrid_encode(table, x, cfg), table,
@@ -329,12 +355,16 @@ def test_table_grad_stochastic_kernel_matches_plain(dev, interp,
     xc = x.clamp(0.0, 1.0)
     out, picks = hg.table_grad_stochastic_kernel(xc, cot, cfg,
                                                  with_picks=True)
-    want_picks = hg.stochastic_picks_plain(xc, cfg)
-    differ = picks != want_picks
+    differ = picks != hg.stochastic_picks_plain(xc, cfg)
     if interp == "tet":
         assert not bool(differ.any())
     else:
+        assert not bool((differ & ~stochastic_ties(torch, xc, cfg)).any())
         assert int(differ.sum()) <= 1e-3 * differ.numel()
+    if inputs == "ray_ordered":
+        # the run inside one level-0 cell: its lanes picked shared rows
+        level0 = picks[1000:1064, 0]
+        assert int(torch.unique(level0).numel()) < 64
     want = torch.zeros((cfg.total_entries, n_features), dtype=torch.float64,
                        device=dev)
     want.index_add_(0, picks.reshape(-1),
