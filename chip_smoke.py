@@ -10,8 +10,9 @@
                                       # and phase 8's stage 3 run on it
     python3 chip_smoke.py --baseline DIR
         # and time K8's interface, K1's stream interface and stochastic
-        # form, K6's route and K3 of another checkout at DIR (e.g. a
-        # parent commit unpacked with `git archive`) beside this one's,
+        # form, K6's route, K6's and K7's stream entries and K3 of
+        # another checkout at DIR (e.g. a parent commit unpacked with
+        # `git archive`) beside this one's,
         # in turns, on the same inputs (K1's stochastic form also in
         # situ, in phase 10's traced steps)
 
@@ -32,11 +33,12 @@ failure raises and exits non-zero):
      cell layout's table gradients K5, K6 and K7 at 8.4M contributions
      into the 439,472 rows of the run_nerfsynthetic_tpu_fast.sh grid
      (each fused from 2^20 points and from its stream, K7 and K5 also at
-     F = 2; K5 fused tet and cube, f32 and bf16sim, and K6 fused beside
-     the stream routes they replaced; K6 fused also on grid knots, upper
-     faces and rank ties), and K1's stochastic form at 2^18 uniform
-     points and at 2^18 ray-ordered slots with a padded tail, tet and
-     cube (its picks against the plain version's, its sum against the
+     F = 2; K7's and K6's stream entries each beside another checkout's
+     with --baseline; K5 fused tet and cube, f32 and bf16sim, and K6
+     fused beside the stream routes they replaced; K6 fused also on grid
+     knots, upper faces and rank ties), and K1's stochastic form at 2^18
+     uniform points and at 2^18 ray-ordered slots with a padded tail, tet
+     and cube (its picks against the plain version's, its sum against the
      float64 plain sum of the rows it picked, index_add_ of those rows
      as the library yardstick, its gradient's zeroing alone);
   3. the evaluation path: render fixture views at full model width
@@ -74,7 +76,9 @@ failure raises and exits non-zero):
      tet and cube; K8 and K1's stream interface on its contributions in
      ray order), of the stage-2, stage-4 and stage-5 steps (K1 into
      their tables, and the zeroing alone for the first two), of one step
-     of each cell path (K7, K5, K6); and K3 (against index_add_ of the
+     of each cell path (K7, K5, K6; K7's and K6's stream entries on the
+     streams of phase 5's bf16factor step, levels inner, with index_add_
+     of their rows); and K3 (against index_add_ of the
      same rows) on each path's composite: the busiest eval chunk, a step
      of each stage-1 training path, a stage-2 step, the joint stage-4
      step's volumetric twin and its packed quadrature stream, a stage-5
@@ -274,7 +278,8 @@ the views are 4 fixture views of 256^2 (the scripts: nerf-synthetic
 chair). The field, the NGP and the 2^18 stage-2 budget run at the
 scripts' widths.
 The last two lines of standard output are a JSON summary of the kernels
-and the result line {"ok": true, "device": {...}}.
+and the result line {"ok": true, "device": {...}}; before them, the
+seconds each phase took on the host's clock ("phase_walls_s").
 """
 from __future__ import annotations
 
@@ -463,8 +468,27 @@ def rows_route(x, g, cfg, stream_kernel):
 
 def pair_route(x, g, cfg, stream_kernel):
     """K6's route before its fused entry: the [N*L, 4F] lo and hi pair
-    streams built with _cell_indices_weights, then a stream entry
-    stream_kernel(idx, lo, hi, E)."""
+    streams (pair_stream), then a stream entry stream_kernel(idx, lo, hi,
+    E)."""
+    return stream_kernel(*pair_stream(x, g, cfg))
+
+
+def factor_stream(x, g, cfg):
+    """K7's stream interface on (x, g): (idx, wk, s1, s2, g, E), the
+    (point, level) pairs in the order x gives them (point-major, levels
+    inner), as sorted_tet_factor_grad takes them."""
+    from quadraturefields_tpu_torch.ops import hashgrid as hg
+
+    m, F = x.shape[0] * cfg.n_levels, cfg.n_features
+    idx, wk, s1, s2 = hg._cell_tet_levels(x, cfg)
+    return (idx.reshape(-1), wk.reshape(m, 4), s1.reshape(-1),
+            s2.reshape(-1), g.reshape(m, F), cfg.total_entries)
+
+
+def pair_stream(x, g, cfg):
+    """K6's stream interface on (x, g), the bf16pair route's [N*L, 4F]
+    lo and hi pair streams built with _cell_indices_weights: (idx, lo,
+    hi, E)."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
 
     n, L, F = x.shape[0], cfg.n_levels, cfg.n_features
@@ -472,17 +496,59 @@ def pair_route(x, g, cfg, stream_kernel):
     w8, g2 = w8.reshape(n * L, 8, 1), g.reshape(n * L, F)
     lo = (w8 * g2[:, None, 0::2]).reshape(n * L, 4 * F)
     hi = (w8 * g2[:, None, 1::2]).reshape(n * L, 4 * F)
-    return stream_kernel(idx.reshape(-1), lo, hi, cfg.total_entries)
+    return idx.reshape(-1), lo, hi, cfg.total_entries
+
+
+def cell_stream_case(torch, label, kernel, plain, rows_fn, args, card,
+                     old=None):
+    """A stream entry of K6 (args (idx, lo, hi, E)) or K7 ((idx, wk, s1,
+    s2, g, E)) on one stream: its output against the plain version
+    summed in float64 (limit 1e-5 of max), its time (with `old`, the
+    baseline's entry on the same args, in turns), its plain version's,
+    index_add_ of the prepared f32 contribution rows (rows_fn(*args[1:-1]),
+    hs.pair_rows or hs.factor_rows: the one PyTorch call of the
+    function, its yardstick) and the bound: the stream read once, the
+    [E, RW] output written once, RW operations a contribution (K7: a
+    multiply and an add for each of its 4F products; K6: an add for each
+    of its 2 PW values)."""
+    idx, *vals, e = args
+    m = idx.shape[0]
+    got = kernel(*args)
+    want = plain(*as_f64(args))
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rel = err / scale
+    rw = got.shape[1]
+    del got, want
+    ms, res = timed(lambda: kernel(*args), old and (lambda: old(*args)))
+    plain_ms = cuda_ms(lambda: plain(*args), iters=5)
+    rows = rows_fn(*vals)
+    acc = torch.zeros((e, rw), device=idx.device)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, idx, rows))
+    del rows, acc
+    n_bytes = (m * idx.element_size() + sum(v.numel() * v.element_size()
+                                            for v in vals) + e * rw * 4)
+    b = bound(n_bytes, m * rw)
+    print(f"{label}: {m} contributions into {e} rows of {rw}: max_abs_err "
+          f"{err}, relative {rel} (limit 1e-5); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, index_add_ of the [M, {rw}] rows "
+          f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); baseline {res} [{card}]")
+    check(rel <= 1e-5, f"{label} disagrees: {rel}")
+    return dict(contributions=m, max_abs_err=err, relative=rel, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, **b, **res)
 
 
 class Baseline:
     """The kernels this checkout redesigned, as another checkout's csrc/
-    builds them (`--baseline DIR`): K1's stream entry, K1's stochastic
-    form and K6's stream entry, launched with the arguments of this
-    checkout's wrappers, whose C interfaces they share, and the other
-    checkout's interfaces built on them: K8's (PyTorch entries and bf16
-    casts, then the pair kernel) and K6's route (the lo/hi streams, then
-    K6's stream entry); and K3, with this checkout's lanes a segment."""
+    builds them (`--baseline DIR`): K1's stream entry and stochastic
+    form and K6's and K7's stream entries, launched with the arguments of
+    this checkout's wrappers, whose C interfaces they share; the other
+    checkout's interfaces built on them: K8's
+    (PyTorch entries and bf16 casts, then the pair kernel) and K6's route
+    (the lo/hi streams, then K6's stream entry); and K3, with this
+    checkout's lanes a segment."""
 
     def __init__(self, root):
         from quadraturefields_tpu_torch.ops import hashgrid as hg
@@ -495,11 +561,14 @@ class Baseline:
                                     hs.TABLE_GRAD_PAIRS_KERNEL, tag)
         self.pair = BaselineKernel(csrc, "cell_table_grad",
                                    hs.CELL_PAIR_GRAD_KERNEL, tag)
+        self.factor = BaselineKernel(csrc, "cell_factor_grad",
+                                     hs.CELL_FACTOR_GRAD_KERNEL, tag)
         self.segsum = BaselineKernel(csrc, "segment_sum",
                                      hs.SEGMENT_SUM_KERNEL, tag)
         self.stochastic = BaselineKernel(
             csrc, "hashgrid_encode", hg.ENCODE_BWD_STOCHASTIC_KERNEL, tag)
-        self.kernels = (self.pairs, self.pair, self.segsum, self.stochastic)
+        self.kernels = (self.pairs, self.pair, self.factor, self.segsum,
+                        self.stochastic)
 
     def stochastic_fn(self, x, g, cfg):
         """K1's stochastic form as the other checkout builds it, through
@@ -559,6 +628,20 @@ class Baseline:
                           device=lo.device)
         self.pair.launch(lo.device, ptr(idx), int(idx.dtype == torch.int64),
                          ptr(lo), ptr(hi), ptr(out), m, pw, n_entries)
+        return out
+
+    def factor_fn(self, idx, wk, c1, c2, g, n_entries):
+        """K7's stream entry as the other checkout builds it."""
+        import torch
+
+        from quadraturefields_tpu_torch._cuda import ptr
+
+        m, F = g.shape
+        out = torch.zeros((n_entries, 8 * F), dtype=torch.float32,
+                          device=g.device)
+        self.factor.launch(g.device, ptr(idx), int(idx.dtype == torch.int64),
+                           ptr(wk), ptr(c1), ptr(c2), ptr(g), ptr(out), m, F,
+                           n_entries)
         return out
 
     def pair_route_fn(self, x, g, cfg):
@@ -1100,7 +1183,7 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
     |want| (the atomics add in a varying order). library_ms: one
     index_add_ of the prepared [M, 8F] f32 contribution rows into
     [E, 8F]. With a baseline, its K6 route is timed in turns beside the
-    fused K6."""
+    fused K6, and its K6 and K7 stream entries beside this checkout's."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
@@ -1137,10 +1220,7 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
         e, m = cfg.total_entries, n * L
         check(e == {4: 439_472, 2: 903_456}[F], f"cell grid has {e} rows")
         cot = torch.randn((n, L * F), generator=g, device=dev)
-        idx, wk, s1, s2 = hg._cell_tet_levels(x, cfg)
-        stream = (idx.reshape(-1), wk.reshape(m, 4), s1.reshape(-1),
-                  s2.reshape(-1), cot.reshape(m, F), e)
-        del idx, wk, s1, s2
+        stream = factor_stream(x, cot, cfg)
         rows = hs.factor_rows(*stream[1:5])
         acc = torch.zeros((e, 8 * F), device=dev)
 
@@ -1158,7 +1238,8 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
         fused["stream"] = run(
             f"cell factor grad (K7 stream entry) L{L} F{F}",
             hs.tet_factor_grad_kernel, hs.tet_factor_grad_plain, stream,
-            e, lib, m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F)
+            e, lib, m * (8 + 16 + 8 + 4 * F) + out_bytes, m * 8 * F,
+            baseline and (lambda: baseline.factor_fn(*stream)))
         results[F] = fused
         del rows, acc, stream
 
@@ -1198,12 +1279,7 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             del ridx, vals, acc
         if F == 4:
             pcfg = dataclasses.replace(cfg, grad_payload="bf16pair")
-            idx, w8 = hg._cell_indices_weights(x, pcfg)
-            idx, w8 = idx.reshape(-1), w8.reshape(m, 8, 1)
-            cot2 = cot.reshape(m, F)
-            lo = (w8 * cot2[:, None, 0::2]).reshape(m, 4 * F)
-            hi = (w8 * cot2[:, None, 1::2]).reshape(m, 4 * F)
-            del w8, cot2
+            idx, lo, hi, _ = pair_stream(x, cot, pcfg)
             prows = hs.pair_rows(lo, hi)
             acc = torch.zeros((e, 8 * F), device=dev)
 
@@ -1226,7 +1302,9 @@ def compare_cell_kernels(torch, dev, report, baseline=None):
             entry["stream"] = run(
                 f"cell pair grad (K6 stream entry) L{L} F{F}",
                 hs.pair_grad_kernel, hs.pair_grad_plain, (idx, lo, hi, e),
-                e, lib, m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F)
+                e, lib, m * (8 + 2 * 16 * F) + out_bytes, m * 8 * F,
+                baseline and (
+                    lambda: baseline.pair_stream_fn(idx, lo, hi, e)))
             del lo, hi, prows, idx, acc
             # the in-kernel cell math where it branches, few points a row
             edges = knots_faces_ties(torch, pcfg, g, dev)
@@ -5367,7 +5445,9 @@ def time_captured(torch, report, captured, card, baseline=None):
     order (level by level, corner by corner, then the samples as the
     march laid them out); K1's stochastic form on the corner step's x
     and g (beside the exact K1) and on a phase-10 step's; K7, K5 and K6
-    on one step of their cell paths. Adds report[...]["captured"]."""
+    on one step of their cell paths, and K7's and K6's stream entries on
+    the streams of the bf16factor step (with a baseline, the other
+    checkout's in turns). Adds report[...]["captured"]."""
     from quadraturefields_tpu_torch.ops import hashgrid as hg
     from quadraturefields_tpu_torch.ops import hashgrid_sorted as hs
 
@@ -5525,6 +5605,24 @@ def time_captured(torch, report, captured, card, baseline=None):
         "cell factor grad (K7 fused) on one cell step's x and g",
         hg.tet_factor_grad_x_kernel, hg.tet_factor_grad_x_plain, x, g, cfg,
         cfg.total_entries * cfg.row_width * 4, 4)}
+
+    # K7's and K6's stream entries on the streams of the same step's x
+    # and g, in the order the march laid the samples out (levels inner)
+    t0 = time.perf_counter()
+    for key, kernel, plain, rows_fn, streamer, label in (
+            ("cell_factor_grad", hs.tet_factor_grad_kernel,
+             hs.tet_factor_grad_plain, hs.factor_rows, factor_stream,
+             "K7's stream entry"),
+            ("cell_pair_grad_x", hs.pair_grad_kernel, hs.pair_grad_plain,
+             hs.pair_rows, pair_stream, "K6's stream entry")):
+        old = baseline and (baseline.factor_fn if key == "cell_factor_grad"
+                            else baseline.pair_stream_fn)
+        args = streamer(x, g, cfg)
+        report[key]["stream"]["captured"] = {"cell_step": cell_stream_case(
+            torch, f"{label} on one cell step's stream", kernel, plain,
+            rows_fn, args, card, old)}
+        del args
+    report["cell_stream_cases_s"] = time.perf_counter() - t0
 
     x, g, cfg = captured["cell_f32_step"]
     entry = table_grad(
@@ -5696,6 +5794,14 @@ def main() -> int:
     jobs.append(build_qfgeom)
     if baseline is not None:
         jobs += [k.load for k in baseline.kernels]
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Add the seconds since the last mark to walls[name]."""
+        t = time.perf_counter()
+        walls[name] = round(walls.get(name, 0.0) + t - t_mark[0], 1)
+        t_mark[0] = t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: job(), jobs))
@@ -5704,6 +5810,7 @@ def main() -> int:
     print(f"built {', '.join(libraries)} and qfgeom"
           f"{' and the baseline' if baseline else ''} (one nvcc per "
           f"source, in parallel) in {time.perf_counter() - t0:.1f} s")
+    mark("build")
 
     report, captured = {}, {}
     compare_kernels(torch, dev, report, card, baseline)
@@ -5712,6 +5819,7 @@ def main() -> int:
     # readings become their own rows
     report["table_grad_pairs"] = report["table_grad_values"].pop("stream")
     report["cell_row_grad"] = report["cell_row_grad_x"].pop("stream")
+    mark("2 kernels")
 
     t0 = time.perf_counter()
     views = FixtureViews()
@@ -5719,6 +5827,7 @@ def main() -> int:
           f"built in {time.perf_counter() - t0:.1f} s")
     eval_launches = render_slice(torch, counted, card, views, captured,
                                  profile)
+    mark("3 eval")
 
     from quadraturefields_tpu_torch.train.stage1_ngp import Stage1Config
 
@@ -5738,6 +5847,7 @@ def main() -> int:
     del phase4["trainer"]
     check(train_launches[hg.ENCODE_BWD_STOCHASTIC_KERNEL.name] == 0,
           "the exact training path launched K1's stochastic form")
+    mark("4 train")
     # phase 5: run_nerfsynthetic_tpu_fast.sh's flags (--layout cell
     # --grad_payload bf16factor --n_levels 8 --n_features 4 --num_lobes 0
     # --num_layers 2 --log2_hashmap_size 19 --batch_size 20 --scale 1.5
@@ -5788,21 +5898,25 @@ def main() -> int:
     pair_launches = cell_path(
         "train_cell_bf16pair", "bf16pair", hg.CELL_PAIR_GRAD_X_KERNEL,
         "cell_pair_grad_x_kernel", hg.cell_pair_grad_x_plain)
+    mark("5 cell paths")
 
     # phase 11: the unbounded 360 path at the trainer defaults
     train_360_launches = train_360_slice(torch, counted, card, views,
                                          captured, report, profile)
+    mark("11 360")
 
     # phase 7: stage 2 at run_nerfsynthetic_field.sh's widths
     field_launches, root7, ckpt7, big7 = field_slice(
         torch, counted, card, views, captured, report, profile,
         int(args[args.index("--export") + 1]) if "--export" in args else 0)
+    mark("7 field")
 
     # phase 8: stages 3 and 4 at run_nerfsynthetic_mc.sh's and
     # run_nerfsynthetic_finetune.sh's flags, on phase 7's artifacts
     finetune_launches = finetune_slice(
         torch, counted, card, views, captured, report, root7, ckpt7, big7,
         profile)
+    mark("8 mc and finetune")
 
     # phase 12: stage 4 in the cell layout, run_nerfsynthetic_finetune.sh's
     # flags with run_nerfsynthetic_tpu_fast.sh's --layout cell
@@ -5813,6 +5927,7 @@ def main() -> int:
         None, profile, cell=dict(layout="cell", grad_payload="bf16factor",
                                  n_levels=8, n_features=4),
         **FINETUNE_CELL_DEPTH)
+    mark("12 finetune cell")
 
     # phase 13: back_prop=True of the quadrature field, corner and cell
     corner_bp, cell_bp = field_back_prop_slice(
@@ -5823,6 +5938,7 @@ def main() -> int:
     report["table_grad_pairs"]["in_situ_ms"] = \
         bp["corner"]["stream_in_situ_ms"]
     report["cell_row_grad"]["in_situ_ms"] = bp["cell"]["stream_in_situ_ms"]
+    mark("13 back_prop")
 
     # phase 9: stages 5 and 6 at run_nerfsynthetic_fit_sg.sh's and
     # run_nerfsynthetic_baking.sh's flags, on phase 8's artifacts
@@ -5830,26 +5946,33 @@ def main() -> int:
         torch, counted, card, views, captured, report, root7, profile)
     bake_launches = bake_slice(torch, counted, card, views, captured,
                                report, root7, sg_ckpt)
+    mark("9 fit_sg and bake")
 
     # phase 10: the trainer defaults with grad_mode "stochastic",
     # save_images and LPIPS
     stochastic_launches = stochastic_slice(
         torch, counted, card, views, captured, report, profile, phase4,
         baseline)
+    mark("10 stochastic")
 
     # phase 14: data parallelism, stages 1 and 2 over two gloo ranks on
     # the card, then one NCCL rank
     dp_launches, field_dp_launches = dp_slice(
         torch, counted, card, views, report, phase4, ckpt7)
+    mark("14 dp")
 
     # phase 15: data parallelism of stages 4 and 5 over two gloo ranks on
     # the card, the sample-axis render over two and four, then both
     # stages over one NCCL rank
     finetune_dp_launches, fit_sg_dp_launches, sp_launches = dp45_slice(
         torch, counted, card, views, report, ckpt7, root7, ckpt4)
+    mark("15 dp45 and sp")
 
     time_captured(torch, report, captured, card, baseline)
+    walls["6 of which cell stream entries"] = round(
+        report.pop("cell_stream_cases_s"), 1)
     time_segment_sums(torch, report, captured, card, baseline)
+    mark("6 captured")
 
     check("jax" not in sys.modules, "the port imported jax")
     ref = sorted(k for k in sys.modules if k == "quadraturefields_tpu"
@@ -5891,6 +6014,8 @@ def main() -> int:
     print(json.dumps({k: report[k] for k in (
         "train_finetune_dp", "train_fit_sg_dp", "sp_render", "nccl_dp45",
         "dp45_spawn_s")}, default=float))
+    mark("report")
+    print(json.dumps({"phase_walls_s": walls}))
     print(card)
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
